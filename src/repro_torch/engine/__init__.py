@@ -1,0 +1,44 @@
+"""The port's engine: one substrate-dispatched entry point for the paper's
+three irregular algorithms, with the paper's traffic and bandwidth
+accounting and an explicit plan -> compile -> execute pipeline.
+
+    from repro_torch.engine import Request, run, SpMVInputs
+    y, report = run(Request("spmv", SpMVInputs(a, x), strategy, "cuda"))
+    print(report.to_json())
+
+Ops and substrates meet only in the kernel registry
+(:mod:`repro_torch.engine.registry`); :func:`capabilities` is the table of
+who runs what.
+"""
+from .api import (
+    ExecutionPlan,
+    MigratoryOp,
+    OpNotSupportedError,
+    RunReport,
+    args_signature,
+    plan_key,
+    strategy_dict,
+)
+from .cache import CompiledPlan, PlanCache, default_cache
+from .ops import BFSInputs, BFSOp, GSANAInputs, GSANAOp, SpMVInputs, SpMVOp
+from .registry import KernelRegistry, OpSpec, capabilities, default_registry, kernel, register_op
+from .request import Request
+from .runner import build_plan, compile_plan, execute, resolve_op, run, run_plan, run_request
+from .substrate import (
+    CudaSubstrate,
+    LocalSubstrate,
+    Substrate,
+    get_substrate,
+    list_substrates,
+    register_substrate,
+)
+
+__all__ = [
+    "BFSInputs", "BFSOp", "CompiledPlan", "CudaSubstrate", "ExecutionPlan", "GSANAInputs",
+    "GSANAOp", "KernelRegistry", "LocalSubstrate", "MigratoryOp", "OpNotSupportedError",
+    "OpSpec", "PlanCache", "Request", "RunReport", "SpMVInputs", "SpMVOp", "Substrate",
+    "args_signature", "build_plan", "capabilities", "compile_plan", "default_cache",
+    "default_registry", "execute", "get_substrate", "kernel", "list_substrates", "plan_key",
+    "register_op", "register_substrate", "resolve_op", "run", "run_plan", "run_request",
+    "strategy_dict",
+]

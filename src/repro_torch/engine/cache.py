@@ -1,0 +1,135 @@
+"""Plan cache: keep an executor per plan key and reuse it for every later
+plan with the same shape/dtype/strategy/substrate signature.
+
+PyTorch runs eagerly, so nothing is traced or compiled here: the cached
+executor is the plan's own callable. An entry counts as *compiled* once its
+first call completed; that call (which builds a CUDA kernel the first time
+the process launches it) is what the runner reports as ``compile_seconds``.
+A later plan with the same key is a *hit* and reports
+``cache_hit=True, compile_seconds=0.0``.
+
+Caching an executor closure is sound because
+:func:`~repro_torch.engine.api.plan_key` pins everything the closure
+captures: the op, the substrate fingerprint, every strategy axis, the op's
+static scalars, and the argument signature. The cache is thread-safe; only
+the bookkeeping is taken under its lock, never an executor call.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+from typing import Any, Callable
+
+from .api import ExecutionPlan
+
+
+@dataclasses.dataclass
+class CacheEntry:
+    """One cached executor + its first-call accounting."""
+
+    executor: Callable[..., Any]
+    compiled: bool = False  # first call completed
+    compile_seconds: float = 0.0
+    hits: int = 0
+
+
+@dataclasses.dataclass
+class CompiledPlan:
+    """A plan resolved through the cache, ready to execute.
+
+    ``cache_hit`` is True iff an executor that already completed its first
+    call was reused — the run will be pure steady state.
+    """
+
+    plan: ExecutionPlan
+    executor: Callable[..., Any]
+    cache_hit: bool
+    entry: CacheEntry | None
+
+    def __call__(self) -> Any:
+        return self.executor(*self.plan.args)
+
+
+class PlanCache:
+    """LRU cache of executors keyed by ``ExecutionPlan.key``."""
+
+    def __init__(self, max_entries: int = 256):
+        self.max_entries = max_entries
+        self._entries: collections.OrderedDict[tuple, CacheEntry] = collections.OrderedDict()
+        self._lock = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+        self.uncacheable = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __bool__(self) -> bool:
+        return True  # an empty cache is still a cache, not a None stand-in
+
+    def get(self, plan: ExecutionPlan) -> CompiledPlan:
+        """Resolve a plan's executor; keyless plans bypass the cache."""
+        with self._lock:
+            if plan.key is None:
+                self.uncacheable += 1
+                return CompiledPlan(plan, plan.executor, cache_hit=False, entry=None)
+            entry = self._entries.get(plan.key)
+            if entry is not None:
+                self._entries.move_to_end(plan.key)
+                if entry.compiled:
+                    entry.hits += 1
+                    self.hits += 1
+                    return CompiledPlan(plan, entry.executor, cache_hit=True, entry=entry)
+                # entry exists but its first call never completed: still cold
+                self.misses += 1
+                return CompiledPlan(plan, entry.executor, cache_hit=False, entry=entry)
+            entry = CacheEntry(executor=plan.executor)
+            self._entries[plan.key] = entry
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+            self.misses += 1
+            return CompiledPlan(plan, entry.executor, cache_hit=False, entry=entry)
+
+    def note_compiled(self, compiled: CompiledPlan, seconds: float) -> None:
+        """Record the timed first call of a miss."""
+        with self._lock:
+            if compiled.entry is not None and not compiled.entry.compiled:
+                compiled.entry.compiled = True
+                compiled.entry.compile_seconds = seconds
+
+    def is_warm(self, key: "tuple | None") -> bool:
+        """True iff ``key`` resolves to an executor whose first call
+        already completed."""
+        if key is None:
+            return False
+        with self._lock:
+            entry = self._entries.get(key)
+            return entry is not None and entry.compiled
+
+    def stats(self) -> dict[str, Any]:
+        """Aggregate counters — the cache health record."""
+        with self._lock:
+            lookups = self.hits + self.misses
+            return {
+                "entries": len(self._entries),
+                "hits": self.hits,
+                "misses": self.misses,
+                "uncacheable": self.uncacheable,
+                "hit_rate": self.hits / lookups if lookups else 0.0,
+                "compile_seconds_total": sum(e.compile_seconds for e in self._entries.values()),
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.hits = self.misses = self.uncacheable = 0
+
+
+_DEFAULT_CACHE = PlanCache()
+
+
+def default_cache() -> PlanCache:
+    """The process-wide cache ``engine.run`` uses when none is passed."""
+    return _DEFAULT_CACHE

@@ -1,0 +1,168 @@
+"""The engine's plan -> compile -> execute pipeline behind ``engine.run``.
+
+    result, report = run(Request("spmv", SpMVInputs(a, x), strategy, "cuda"))
+
+The stages are individually exposed:
+
+- :func:`build_plan`   — bind op + inputs + strategy to a substrate executor.
+- :func:`compile_plan` — resolve the executor through a
+  :class:`~repro_torch.engine.cache.PlanCache`; a hit reuses it.
+- :func:`execute` / :func:`run` — timed execution. Defaults
+  (``iters=3, warmup=1``) report *steady-state* medians with the first call
+  of a new executor (kernel builds included) split into
+  ``RunReport.compile_seconds``; ``iters=1, warmup=0`` times one cold call.
+
+A timed call ends in ``torch.cuda.synchronize()`` when its result lies on
+the card, so ``seconds`` is device time plus host overhead, never just the
+time to enqueue.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import torch
+
+from ..core.strategies import MigratoryStrategy
+from . import ops as _ops  # noqa: F401  (imports register the built-in OpSpecs)
+from .api import ExecutionPlan, MigratoryOp, RunReport
+from .cache import CompiledPlan, PlanCache, default_cache
+from .registry import default_registry
+from .request import Request
+from .substrate import Substrate, get_substrate
+
+
+def resolve_op(op: "MigratoryOp | str") -> MigratoryOp:
+    """Name -> MigratoryOp via the registry's OpSpec; instances pass through."""
+    if isinstance(op, str):
+        return default_registry().op_spec(op).factory()
+    return op
+
+
+def resolve_strategy(strategy: "MigratoryStrategy | None") -> MigratoryStrategy:
+    """None -> the paper defaults. The port has no autotuner, so
+    ``"auto"`` is refused."""
+    if strategy is None:
+        return MigratoryStrategy()
+    if not isinstance(strategy, MigratoryStrategy):
+        raise ValueError(f"strategy must be a MigratoryStrategy or None, got {strategy!r}")
+    return strategy
+
+
+def build_plan(
+    op: "MigratoryOp | str",
+    inputs: Any,
+    strategy: "MigratoryStrategy | None" = None,
+    substrate: "Substrate | str" = "local",
+) -> ExecutionPlan:
+    """Stage 1: plan. Resolve op/strategy/substrate and bind the inputs."""
+    return resolve_op(op).plan(inputs, resolve_strategy(strategy), get_substrate(substrate))
+
+
+def compile_plan(plan: ExecutionPlan, cache: PlanCache | None = None) -> CompiledPlan:
+    """Stage 2: resolve the plan's executor through the cache."""
+    return (default_cache() if cache is None else cache).get(plan)
+
+
+def _block(result: Any) -> Any:
+    """Wait for the card when the result lies on it (the counterpart of
+    ``jax.block_until_ready``)."""
+    first = result[0] if isinstance(result, tuple) else result
+    if isinstance(first, torch.Tensor) and first.is_cuda:
+        torch.cuda.synchronize(first.device)
+    return result
+
+
+def _timed_call(compiled: CompiledPlan, times: list[float]) -> Any:
+    t0 = time.perf_counter()
+    result = _block(compiled())
+    times.append(time.perf_counter() - t0)
+    return result
+
+
+def execute(
+    compiled: "CompiledPlan | ExecutionPlan",
+    *,
+    iters: int = 3,
+    warmup: int = 1,
+    cache: PlanCache | None = None,
+) -> tuple[Any, float, float]:
+    """Stage 3: execute. Returns ``(result, seconds, compile_seconds)``.
+
+    ``seconds`` is the median of ``iters`` timed calls after ``warmup``
+    unmeasured ones. On a cache miss the first call is recorded as
+    ``compile_seconds`` and doubles as the first warmup call — or, with
+    ``warmup=0``, lands inside the timed set.
+    """
+    cache = default_cache() if cache is None else cache
+    if isinstance(compiled, ExecutionPlan):
+        compiled = compile_plan(compiled, cache)
+    timed: list[float] = []
+    compile_seconds = 0.0
+    result = None
+    n_warm = warmup
+    if not compiled.cache_hit:
+        first: list[float] = []
+        result = _timed_call(compiled, first)
+        compile_seconds = first[0]
+        cache.note_compiled(compiled, compile_seconds)
+        if warmup > 0:
+            n_warm = warmup - 1  # the first call was the first warmup
+        else:
+            timed.append(compile_seconds)  # cold-timing mode
+    for _ in range(n_warm):
+        result = _timed_call(compiled, [])
+    for _ in range(max(1, iters) - len(timed)):
+        result = _timed_call(compiled, timed)
+    timed.sort()
+    return result, timed[len(timed) // 2], compile_seconds
+
+
+def run_plan(
+    plan: ExecutionPlan,
+    op: MigratoryOp,
+    *,
+    iters: int = 3,
+    warmup: int = 1,
+    cache: PlanCache | None = None,
+) -> tuple[Any, RunReport]:
+    """Compile + execute an already-built plan and assemble its RunReport."""
+    compiled = compile_plan(plan, cache)
+    result, seconds, compile_seconds = execute(compiled, iters=iters, warmup=warmup, cache=cache)
+    report = RunReport.from_parts(
+        op=op.name,
+        strategy=plan.strategy,
+        substrate=plan.substrate,
+        seconds=seconds,
+        traffic=op.traffic(plan),
+        bytes_moved=op.bytes_moved(plan),
+        metrics=op.metrics(plan, result, seconds),
+        cache_hit=compiled.cache_hit,
+        compile_seconds=compile_seconds,
+    )
+    return result, report
+
+
+def run(
+    request: Request,
+    *,
+    iters: int = 3,
+    warmup: int = 1,
+    cache: PlanCache | None = None,
+) -> tuple[Any, RunReport]:
+    """Execute one :class:`~repro_torch.engine.request.Request`; return
+    ``(result, RunReport)``.
+
+    ``iters``/``warmup``: the defaults time steady state (median of 3 after
+    1 warmup) with the first call split out; ``iters=1, warmup=0`` times one
+    cold call. ``cache``: plan cache override (default: the process-wide one).
+    """
+    if not isinstance(request, Request):
+        raise TypeError(f"run takes a Request, got {type(request).__name__}")
+    op = resolve_op(request.op)
+    sub = get_substrate(request.substrate if request.substrate is not None else "local")
+    plan = op.plan(request.inputs, resolve_strategy(request.strategy), sub)
+    return run_plan(plan, op, iters=iters, warmup=warmup, cache=cache)
+
+
+run_request = run

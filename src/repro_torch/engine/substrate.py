@@ -1,0 +1,179 @@
+"""Substrates: where a MigratoryOp's plan executes.
+
+Two built-in backends:
+
+- ``local`` — plain PyTorch with the distributed semantics: the port's own
+  correctness oracle.
+- ``cuda``  — routes the compute hot loops to the hand-written CUDA kernels
+  (``kernels/spmv``, ``kernels/bfs``, ``kernels/topk_sim``); the counterpart
+  of the JAX package's ``pallas`` substrate.
+
+A substrate does not implement one method per op: its per-op entry points
+are *kernels* registered against its ``kind`` in the
+:mod:`~repro_torch.engine.registry` (``@kernel("spmv", "cuda")`` below).
+
+Every substrate is bound to one device (``device=``, default ``"cuda"``;
+asking for CUDA without a card raises) and accepts only inputs that lie on
+it. A ``cuda`` substrate on the CPU runs each kernel's plain PyTorch
+version, because the kernel wrappers dispatch on the device of the tensors
+they are handed.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+
+from ..core.bfs import bfs_local
+from ..core.gsana import (
+    DEFAULT_VOCAB, NEG, _merge_pair_topk, _scatter_vertex_major, compute_similarity, pair_tasks,
+)
+from ..core.spmv import spmv_local, unstripe_vector
+from ..core.strategies import Scheme
+from ..device import resolve_device
+from ..kernels.bfs.ops import bfs_cuda
+from ..kernels.spmv.ops import spmv as spmv_kernel
+from ..kernels.topk_sim.ops import topk_sim_pairs
+from .api import OpNotSupportedError
+from .registry import default_registry, kernel
+
+
+class Substrate:
+    """Execution backend for MigratoryOps, bound to one device.
+
+    ``name`` labels the instance in reports; ``kind`` (defaults to ``name``)
+    is the registry key kernels are looked up under.
+    """
+
+    name: str = "abstract"
+    kind: str = "abstract"
+
+    def __init__(self, device: "str | torch.device" = "cuda"):
+        self.device = resolve_device(device)
+
+    def kernel(self, op_name: str) -> Callable:
+        """Resolve this backend's kernel for ``op_name`` (bound to self).
+        Raises :class:`OpNotSupportedError` when no kernel is registered."""
+        fn = default_registry().resolve_kernel(op_name, self.kind)
+        return functools.partial(fn, self)
+
+    def supports(self, op_name: str) -> bool:
+        return default_registry().has_kernel(op_name, self.kind)
+
+    def check_inputs(self, *tensors: torch.Tensor) -> None:
+        """Raise unless every tensor lies on this substrate's device."""
+        for t in tensors:
+            if t.device.type != self.device.type or (
+                self.device.index is not None and t.device != self.device
+            ):
+                raise ValueError(
+                    f"{self.name} substrate on {self.device} got an input on {t.device}; "
+                    "build the inputs with the same device="
+                )
+
+    def cache_fingerprint(self) -> tuple:
+        """Hashable identity for the plan cache: two substrate instances with
+        equal fingerprints are interchangeable executors."""
+        return (self.name, str(self.device))
+
+
+class LocalSubstrate(Substrate):
+    """Plain PyTorch — the port's oracle, on the CPU or on the card."""
+
+    name = kind = "local"
+
+
+class CudaSubstrate(Substrate):
+    """Routes hot loops to the CUDA kernels (plain versions on the CPU)."""
+
+    name = kind = "cuda"
+
+
+# -- built-in kernels ----------------------------------------------------------
+# The algorithm code lives in repro_torch.core.*; these adapters bind it to a
+# backend. Registered here (not on the classes) so capability is data.
+
+
+@kernel("spmv", "local")
+def _spmv_local(sub: Substrate, a, x, *, strategy):
+    return spmv_local(a, x, strategy)
+
+
+@kernel("bfs", "local")
+def _bfs_local(sub: Substrate, g, root, *, strategy, max_rounds=None):
+    return bfs_local(g, root, strategy, max_rounds)
+
+
+@kernel("gsana", "local")
+def _gsana_local(sub: Substrate, vs1, vs2, b1, b2, k, *, strategy):
+    return compute_similarity(vs1, vs2, b1, b2, k, strategy.scheme)
+
+
+@kernel("spmv", "cuda")
+def _spmv_cuda(sub: CudaSubstrate, a, x, *, strategy):
+    x_full = x if strategy.replicate_x else unstripe_vector(x, a.shape[1])
+    p, rp, k = a.cols.shape
+    grain = strategy.dynamic_grain(rp)
+    # nodelet planes -> one (P*R_p, K) row block; one CUDA block per grain rows
+    y = spmv_kernel(
+        a.cols.reshape(p * rp, k), a.vals.reshape(p * rp, k), x_full.contiguous(),
+        grain=max(1, min(grain, p * rp)),
+    )
+    return y.reshape(p, rp)
+
+
+@kernel("bfs", "cuda")
+def _bfs_cuda(sub: CudaSubstrate, g, root, *, strategy, max_rounds=None):
+    # both S2 strategies share the kernel (deterministic min-merge, same
+    # tree as the local oracle); the strategy contributes the grain axis
+    return bfs_cuda(g, root, strategy, max_rounds)
+
+
+@kernel("gsana", "cuda")
+def _gsana_cuda(sub: CudaSubstrate, vs1, vs2, b1, b2, k, *, strategy):
+    if strategy.scheme != Scheme.PAIR:
+        raise OpNotSupportedError("cuda gsana kernel implements the PAIR task shape only")
+    pair_b2, pair_b1 = pair_tasks(b2.grid, b2.vid.device)
+    scores, u_ids = topk_sim_pairs(
+        vs1, vs2, b1, b2, pair_b2, pair_b1, vocab=DEFAULT_VOCAB, k=min(k, b1.cap),
+    )
+    scores = torch.where(torch.isfinite(scores), scores, NEG)
+    cand_b, score_b = _merge_pair_topk(u_ids, scores, b2.grid * b2.grid, k)
+    return _scatter_vertex_major(cand_b, score_b, b2, vs2.n, k)
+
+
+# -- registry ------------------------------------------------------------------
+
+_REGISTRY: dict[str, type[Substrate]] = {}
+
+
+def register_substrate(cls: type[Substrate]) -> type[Substrate]:
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def substrate_classes() -> dict[str, type[Substrate]]:
+    return dict(sorted(_REGISTRY.items()))
+
+
+def list_substrates() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def get_substrate(substrate: "Substrate | str") -> Substrate:
+    """Resolve a substrate instance from a name (on the default device,
+    ``"cuda"``) or pass an instance through."""
+    if isinstance(substrate, Substrate):
+        return substrate
+    try:
+        cls = _REGISTRY[substrate]
+    except KeyError:
+        raise ValueError(
+            f"unknown substrate {substrate!r}; registered: {list_substrates()}"
+        ) from None
+    return cls()
+
+
+register_substrate(LocalSubstrate)
+register_substrate(CudaSubstrate)

@@ -1,0 +1,156 @@
+"""BFS in the PyTorch port against the JAX package, on the CPU.
+
+Parent trees must be bit-identical: the merge is an integer min, which no
+order of evaluation changes. Compared across both S2 comm strategies and
+every block size of the reference's Pallas grid, on the port's ``local``
+and ``cuda`` substrates (the latter runs the round kernel's plain version
+here), against the JAX ``local`` and ``pallas`` (interpret mode) paths."""
+from dataclasses import astuple
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+import repro.sparse as RS
+import repro_torch.core as T
+import repro_torch.sparse as TS
+from repro.core.bfs import _adj_global as ref_adj_global
+from repro.engine import PALLAS_BLOCK_CANDIDATES
+from repro.engine import BFSInputs as JBFSInputs, Request as JRequest, run as jrun
+from repro.kernels.bfs.kernel import bfs_expand_pallas
+from repro.kernels.bfs.ref import bfs_expand_reference
+from repro_torch.core.bfs import _adj_global as port_adj_global
+from repro_torch.engine import BFSInputs, CudaSubstrate, LocalSubstrate, Request, run
+from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
+from repro_torch.kernels.bfs.ops import bfs_cuda
+
+CPU = "cpu"
+GRAPHS = {
+    "er8": (lambda mod: mod.erdos_renyi_edges(8, 6, seed=2), 256, 3),
+    "rmat9": (lambda mod: mod.rmat_edges(9, 8, seed=3), 512, 0),
+    "rmat10": (lambda mod: mod.rmat_edges(10, 8, seed=1), 1024, 5),
+}
+_CACHE: dict = {}
+_REF_PARENTS: dict = {}
+
+
+def problem(name: str):
+    if name not in _CACHE:
+        gen, n, root = GRAPHS[name]
+        g_ref = RS.partition_graph(RS.edges_to_csr(gen(RS), n), 8)
+        g = TS.partition_graph(TS.edges_to_csr(gen(TS), n, device=CPU), 8, device=CPU)
+        _CACHE[name] = (JBFSInputs(g_ref, root), BFSInputs(g, root))
+    return _CACHE[name]
+
+
+def ref_parents(name: str, comm, substrate: str):
+    key = (name, comm, substrate)
+    if key not in _REF_PARENTS:
+        ref_in, _ = problem(name)
+        st = R.MigratoryStrategy(comm=R.Comm(comm.value))
+        _REF_PARENTS[key] = jrun(JRequest("bfs", ref_in, st, substrate), iters=1, warmup=0)
+    return _REF_PARENTS[key]
+
+
+@pytest.mark.parametrize("grain", PALLAS_BLOCK_CANDIDATES)
+@pytest.mark.parametrize("comm", list(T.Comm))
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bfs_parents_bit_identical(name, comm, grain):
+    ref_in, port_in = problem(name)
+    p_ref, rep_ref = ref_parents(name, comm, "local")
+    st = T.MigratoryStrategy(comm=comm, grain=grain)
+    for sub in (LocalSubstrate(CPU), CudaSubstrate(CPU)):
+        parents, rep = run(Request("bfs", port_in, st, sub), iters=1, warmup=0)
+        assert parents.dtype == torch.int32
+        np.testing.assert_array_equal(parents.numpy(), np.asarray(p_ref))
+        row, row_ref = rep.to_dict(), rep_ref.to_dict()
+        for col in ("rounds", "edges_traversed", "reached", "migrations", "remote_writes",
+                    "traffic_bytes", "bytes_moved"):
+            assert row[col] == row_ref[col], col
+        assert T.validate_parents(port_in.g, port_in.root, parents)
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bfs_matches_reference_pallas_substrate(name):
+    _, port_in = problem(name)
+    p_pallas, _ = ref_parents(name, T.Comm.REMOTE_WRITE, "pallas")
+    parents = bfs_cuda(port_in.g, port_in.root)
+    np.testing.assert_array_equal(parents.numpy(), np.asarray(p_pallas))
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 3])
+def test_bfs_max_rounds_cut(max_rounds):
+    ref_in, port_in = problem("rmat9")
+    p_ref = R.bfs_local(ref_in.g, ref_in.root, max_rounds=max_rounds)
+    for sub in (LocalSubstrate(CPU), CudaSubstrate(CPU)):
+        inputs = BFSInputs(port_in.g, port_in.root, max_rounds=max_rounds)
+        parents, _ = run(Request("bfs", inputs, None, sub), iters=1, warmup=0)
+        np.testing.assert_array_equal(parents.numpy(), np.asarray(p_ref))
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 64, 4096])
+def test_expand_round_matches_reference_kernels(block_rows):
+    ref_in, port_in = problem("rmat10")
+    adj_ref = ref_adj_global(ref_in.g)
+    adj = port_adj_global(port_in.g)
+    frontier = np.random.default_rng(block_rows).random(adj.shape[0]) < 0.2
+    want = np.asarray(bfs_expand_reference(adj_ref, frontier.astype(np.int32)))
+    np.testing.assert_array_equal(
+        np.asarray(bfs_expand_pallas(adj_ref, frontier.astype(np.int32), block_rows=block_rows,
+                                     interpret=True)), want)
+    for f in (torch.as_tensor(frontier), torch.as_tensor(frontier.astype(np.int32))):
+        got = bfs_expand(adj, f, block_rows=block_rows)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(bfs_expand_plain(adj, f).numpy(), want)
+
+
+@pytest.mark.parametrize("comm", list(T.Comm))
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bfs_traffic_replay_identical(name, comm):
+    ref_in, port_in = problem(name)
+    st_ref = R.MigratoryStrategy(comm=R.Comm(comm.value))
+    ref = R.bfs_traffic(ref_in.g, ref_in.root, st_ref)
+    got = T.bfs_traffic(port_in.g, port_in.root, T.MigratoryStrategy(comm=comm))
+    assert (got.rounds, got.edges_traversed) == (ref.rounds, ref.edges_traversed)
+    assert astuple(got.traffic) == astuple(ref.traffic)
+    assert T.bfs_bytes_moved(got.edges_traversed) == R.bfs_bytes_moved(ref.edges_traversed)
+    assert T.teps(got.edges_traversed, 0.25) == R.teps(ref.edges_traversed, 0.25)
+
+
+def _corruptions(parents: np.ndarray, root: int, adj: np.ndarray):
+    """Parent arrays the validator must reject or accept, each with the
+    reference's verdict computed alongside."""
+    reached = np.nonzero((parents >= 0) & (np.arange(len(parents)) != root))[0]
+    v, w = int(reached[-1]), int(reached[-2])
+    bad_root = parents.copy()
+    bad_root[root] = -1
+    non_edge = parents.copy()
+    non_edge[v] = next(u for u in range(len(parents)) if v not in adj[u] and u != v)
+    cycle = parents.copy()
+    if v in adj[w] and w in adj[v]:
+        cycle[v], cycle[w] = w, v
+    orphan = parents.copy()  # v's parent chain leads to an unreached vertex
+    unreached = np.nonzero(parents < 0)[0]
+    for u in unreached:
+        if v in adj[u]:
+            orphan[v] = u
+            break
+    truncated = parents.copy()
+    truncated[v] = -1
+    return [parents, bad_root, non_edge, cycle, orphan, truncated]
+
+
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_validate_parents_agrees_with_reference(name):
+    ref_in, port_in = problem(name)
+    parents = np.array(R.bfs_local(ref_in.g, ref_in.root))
+    p, vp, k = port_in.g.adj.shape
+    adj = np.transpose(port_in.g.adj.numpy(), (1, 0, 2)).reshape(vp * p, k)
+    verdicts = []
+    for cand in _corruptions(parents, ref_in.root, adj):
+        want = R.validate_parents(ref_in.g, ref_in.root, cand)
+        assert T.validate_parents(port_in.g, port_in.root, torch.as_tensor(cand)) == want
+        verdicts.append(want)
+    assert verdicts[0] and not verdicts[1] and not verdicts[2]

@@ -1,0 +1,139 @@
+"""SpMV in the PyTorch port against the JAX package, on the CPU.
+
+The same numpy-built matrix and vector go through the JAX ``local`` and
+``pallas`` (interpret mode) substrates and the port's ``local`` and ``cuda``
+substrates (the kernel's plain version, since the tensors lie on the CPU).
+Tolerance ``rtol=atol=1e-5``: the fp32 sums run in another order, the
+reference's own pallas-vs-local tolerance."""
+from dataclasses import astuple
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+import repro.sparse as RS
+import repro_torch.core as T
+import repro_torch.sparse as TS
+from repro.engine import Request as JRequest, SpMVInputs as JSpMVInputs, run as jrun
+from repro.kernels.spmv.ops import spmv as jspmv
+from repro.kernels.spmv.stripe import build_stripe_plan as jbuild_stripe_plan
+from repro.sparse import ell_from_csr
+from repro_torch.engine import CudaSubstrate, LocalSubstrate, Request, SpMVInputs, run
+from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
+from repro_torch.kernels.spmv.ops import STRIPE_WASTE_THRESHOLD, spmv
+from repro_torch.kernels.spmv.stripe import build_stripe_plan, spmv_ell_stripes
+
+CPU = "cpu"
+TOL = dict(rtol=1e-5, atol=1e-5)
+# laplacian_2d(23): 529 rows, a multiple of neither P=8 nor any block size
+MATRICES = {
+    "lap16": lambda mod, **kw: mod.laplacian_2d(16, **kw),
+    "lap23": lambda mod, **kw: mod.laplacian_2d(23, **kw),
+    "skewed": lambda mod, **kw: mod.skewed_matrix(600, 4.0, 64, seed=5, **kw),
+}
+_CACHE: dict = {}
+
+
+def tensor(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of a reference array."""
+    return torch.as_tensor(np.array(a))
+
+
+def problem(name: str):
+    """(reference inputs, port inputs) for one matrix, built once per module."""
+    if name not in _CACHE:
+        a_ref = MATRICES[name](RS)
+        a = MATRICES[name](TS, device=CPU)
+        n = a.n_cols
+        x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+        _CACHE[name] = (
+            JSpMVInputs(R.partition_ell(a_ref, 8), x),
+            SpMVInputs(T.partition_ell(a, 8, device=CPU), torch.as_tensor(x)),
+            a,
+        )
+    return _CACHE[name]
+
+
+@pytest.mark.parametrize("grain", [None, 16, 64])
+@pytest.mark.parametrize("replicate_x", [True, False])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_spmv_engine_parity(name, replicate_x, grain):
+    ref_in, port_in, a = problem(name)
+    st_ref = R.MigratoryStrategy(replicate_x=replicate_x, grain=grain)
+    st = T.MigratoryStrategy(replicate_x=replicate_x, grain=grain)
+    y_local, rep_local = run(Request("spmv", port_in, st, LocalSubstrate(CPU)), iters=1, warmup=0)
+    y_cuda, rep_cuda = run(Request("spmv", port_in, st, CudaSubstrate(CPU)), iters=1, warmup=0)
+    for sub in ("local", "pallas"):
+        y_ref, rep_ref = jrun(JRequest("spmv", ref_in, st_ref, sub), iters=1, warmup=0)
+        for y, rep in ((y_local, rep_local), (y_cuda, rep_cuda)):
+            np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), **TOL)
+            for col in ("migrations", "remote_writes", "traffic_bytes", "bytes_moved",
+                        "grain", "nodelets"):
+                assert rep.to_dict()[col] == rep_ref.to_dict()[col], col
+    want = TS.spmv_csr_ref(a, port_in.x).numpy()
+    np.testing.assert_allclose(T.gather_result(y_cuda, a.n_rows).numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("block_rows", [1, 7, 16, 64, 256, 10_000])
+def test_ell_kernel_plain_matches_reference_kernel(block_rows):
+    a_ref = RS.skewed_matrix(300, 4.0, 20, seed=3)
+    e = ell_from_csr(a_ref)
+    x = np.random.default_rng(1).standard_normal(300).astype(np.float32)
+    want = np.asarray(jspmv(e.cols, e.vals, x, grain=block_rows, interpret=True))
+    cols, vals = tensor(e.cols), tensor(e.vals)
+    got = spmv_ell(cols, vals, torch.as_tensor(x), block_rows=block_rows)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(got.numpy(), spmv_ell_plain(cols, vals, torch.as_tensor(x)).numpy())
+
+
+@pytest.mark.parametrize("block_rows", [32, 64, 200])
+def test_stripe_plan_and_product_match_reference(block_rows):
+    a_ref = RS.skewed_matrix(512, 4.0, 128, seed=9)
+    e = ell_from_csr(a_ref)
+    cols, vals = tensor(e.cols), tensor(e.vals)
+    ref_plan = jbuild_stripe_plan(e.cols, block_rows)
+    plan = build_stripe_plan(cols, block_rows)
+    assert (plan.block_rows, plan.n_rows, plan.k_full) == (
+        ref_plan.block_rows, ref_plan.n_rows, ref_plan.k_full)
+    assert [b.k for b in plan.buckets] == [b.k for b in ref_plan.buckets]
+    for b, rb in zip(plan.buckets, ref_plan.buckets):
+        np.testing.assert_array_equal(b.rows, np.asarray(rb.rows))
+    assert plan.waste_ratio == ref_plan.waste_ratio
+    x = np.random.default_rng(1).standard_normal(512).astype(np.float32)
+    want = np.asarray(RS.spmv_csr_ref(a_ref, x))
+    got = spmv_ell_stripes(cols, vals, torch.as_tensor(x), block_rows=block_rows)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="stripe plan"):
+        spmv_ell_stripes(cols[:-1], vals[:-1], torch.as_tensor(x), plan=plan)
+
+
+@pytest.mark.parametrize("variant", ["ell", "stripe", "auto"])
+def test_spmv_variants_match_reference_dispatcher(variant):
+    a_ref = RS.skewed_matrix(512, 4.0, 128, seed=9)
+    e = ell_from_csr(a_ref)
+    x = np.random.default_rng(2).standard_normal(512).astype(np.float32)
+    want = np.asarray(jspmv(e.cols, e.vals, x, grain=64, variant=variant, interpret=True))
+    got = spmv(tensor(e.cols), tensor(e.vals),
+               torch.as_tensor(x), grain=64, variant=variant)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_auto_keeps_uniform_rows_on_the_ell_kernel():
+    u = T.partition_ell(TS.laplacian_2d(8, device=CPU), 1, device=CPU)
+    assert build_stripe_plan(u.cols[0], block_rows=16).waste_ratio < STRIPE_WASTE_THRESHOLD
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(64).astype(np.float32))
+    np.testing.assert_allclose(spmv(u.cols[0], u.vals[0], x, grain=16, variant="auto").numpy(),
+                               spmv_ell_plain(u.cols[0], u.vals[0], x).numpy(), **TOL)
+    with pytest.raises(ValueError, match="variant"):
+        spmv(u.cols[0], u.vals[0], x, variant="csr5")
+
+
+def test_spmv_model_helpers_match_reference():
+    ref_in, port_in, a = problem("skewed")
+    for rep in (True, False):
+        st_ref, st = R.MigratoryStrategy(replicate_x=rep), T.MigratoryStrategy(replicate_x=rep)
+        assert astuple(T.spmv_traffic(port_in.a, st)) == astuple(R.spmv_traffic(ref_in.a, st_ref))
+    assert T.spmv_bytes_moved(port_in.a, a.n_cols) == R.spmv_bytes_moved(ref_in.a, a.n_cols)
+    assert T.effective_bandwidth(port_in.a, a.n_cols, 0.5) == R.effective_bandwidth(
+        ref_in.a, a.n_cols, 0.5)
