@@ -6,7 +6,7 @@
 Needs one CUDA card and the CUDA toolkit; exits non-zero, printing no
 result, without them or outside a checkout of the repository. In order:
 
-1. builds the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+1. builds the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once);
 2. builds the paper's inputs on the card: SpMV on ``laplacian_2d(2048)``
    (4,194,304 rows, P=8), BFS on ``erdos_renyi_edges(20, 16)`` (2^20
@@ -18,10 +18,20 @@ result, without them or outside a checkout of the repository. In order:
    just before and read just after, and checks the results (SpMV against
    the CSR reference, BFS parents validated, GSANA against the ``local``
    substrate);
-4. holds the ``cuda`` substrate against the ``local`` one on small inputs;
-5. holds every kernel against its plain PyTorch version at the main path's
+4. serves the dense LM at the full width of llama3.2-3b (28 layers, bf16,
+   random weights from seed 0) through ``lm_serve`` with ``attn_impl="flash"``:
+   4 prompts of 2048 tokens, 32 greedy tokens, the flash kernel's launch
+   count set to 0 just before and checked to be 28 (one prefill) just after;
+   then holds the flash prefill's logits against the reference attention
+   branch on the same weights, and 4 teacher-forced decode steps after each;
+5. holds the ``cuda`` substrate against the ``local`` one on small inputs;
+6. profiles one request of each op, one LM prefill and one decode step
+   (device busy time against wall time, kernel count, top kernels);
+7. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
-   with CUDA events, beside the least time the card could take (bound).
+   with CUDA events, beside the least time the card could take (bound);
+   flash attention on layer 0's q, k, v captured from the prefill, and on
+   small float32 cases of every mask kind.
 
 Prints RunReport rows, then a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -40,11 +50,24 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32
+# outside the tensor cores, bf16 dense on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 SPMV_RTOL = SPMV_ATOL = 1e-5  # fp32 sums in another order than the plain version
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TEACHER_STEPS = "llama3.2-3b", 4, 2048, 32, 4
+# flash vs reference attention through 28 bf16 layers, on the logits (whose
+# largest magnitude is 5 to 6 here): the flash branch rounds p to bf16
+# before PV and the reference does not, each bf16 rounding is 2**-8
+# relative, and every later layer carries the difference on. On an H100 the
+# two differed by 0.16 to 0.22; an error in either branch (a mask, a head
+# map, a position) moves logits by whole units
+LM_LOGIT_ATOL = 0.5
+# the flash kernel against its plain version at the same k blocks (64): the
+# output rounds to bf16, one ulp is 2**-8 relative
+FLASH_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
+FLASH_F32_TOL = dict(rtol=1e-5, atol=1e-5)  # float32 sums in another order
 
 
 def card_line() -> str:
@@ -69,10 +92,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_FP32_PER_S) -> tuple[float, str]:
     """(least milliseconds, what bounds it) for work that must move
-    ``n_bytes`` and do ``n_ops`` float32 operations."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_PER_S
+    ``n_bytes`` and do ``n_ops`` operations at ``peak_ops`` per second."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -132,10 +155,16 @@ def main() -> int:
         return finish(smoke)
     launches = smoke.phase("main path through engine.run on the cuda substrate",
                            main_path, smoke, inputs)
+    lm = smoke.phase(f"LM serve ({LM_ARCH}, flash)", lm_serve_path, smoke, dev)
+    if lm is not None:
+        smoke.phase("LM flash prefill and decode vs the reference attention branch",
+                    lm_vs_reference, smoke, lm)
     smoke.phase("cuda vs local substrate on small inputs", small_agreement, smoke, dev)
-    smoke.phase("device time per request (torch.profiler)", profile_requests, inputs)
+    smoke.phase("device time per request (torch.profiler)", profile_requests, inputs, lm)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
+    if lm is not None:
+        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm)
     return finish(smoke)
 
 
@@ -254,6 +283,102 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
     return launches
 
 
+def lm_serve_path(smoke: Smoke, dev) -> dict:
+    """The LM's main path: ``lm_serve`` at the full width of the arch, flash
+    attention at prefill. A short warm-up serve first (cuBLAS, the kernel's
+    library) captures layer 0's attention inputs for the kernel check."""
+    import dataclasses
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attn
+    from repro_torch.launch.serve import lm_serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} weights in {cfg.dtype}, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+
+    captured = []
+    flash_attention = layers.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v))
+        return flash_attention(q, k, v, **kw)
+
+    layers.flash_attention = capture
+    try:
+        lm_serve(cfg, model, prompts, 2, dev)
+    finally:
+        layers.flash_attention = flash_attention
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, launches = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, LM_GEN, dev))
+    toks = res.tokens
+    smoke.check(tuple(toks.shape) == (LM_BATCH, LM_GEN), f"lm_serve: token shape {tuple(toks.shape)}")
+    smoke.check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "lm_serve: token ids out of range")
+    steps = LM_GEN - 1
+    stats = {
+        "arch": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "prefill_ms": res.prefill_seconds * 1e3,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / res.prefill_seconds,
+        "decode_ms_per_step": res.decode_seconds * 1e3 / steps,
+        "decode_tok_s": LM_BATCH * steps / res.decode_seconds,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "flash_attn_launches": launches,
+    }
+    print("  lm " + json.dumps(stats), flush=True)
+    print(f"  sample token ids: {toks[0, :16].tolist()}")
+    smoke.check(launches == cfg.num_layers,
+                f"flash_attn launched {launches} times in one prefill, want {cfg.num_layers}")
+    return {"cfg": cfg, "model": model, "prompts": prompts, "launches": launches,
+            "qkv": captured[0]}
+
+
+def lm_vs_reference(smoke: Smoke, lm: dict) -> None:
+    """The flash prefill against the reference attention branch (q-chunked
+    plain PyTorch) on the same weights, then teacher-forced decode steps:
+    the same tokens into both caches. Free-running greedy tokens are not
+    compared: random weights give near-tied logits."""
+    import dataclasses
+
+    from repro_torch.models import Ctx, api
+
+    cfg, model = lm["cfg"], lm["model"]
+    dev = model.embed.device
+    tokens = torch.as_tensor(lm["prompts"], device=dev)
+    ctx_f, ctx_r = Ctx(cfg), Ctx(dataclasses.replace(cfg, attn_impl="reference"))
+    max_len = LM_PROMPT + LM_TEACHER_STEPS
+    lf, cf = api.prefill(ctx_f, model, tokens, max_len)
+    t0 = time.perf_counter()
+    lr, cr = api.prefill(ctx_r, model, tokens, max_len)
+    torch.cuda.synchronize()
+    print(f"  reference-branch prefill: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"  KV caches after prefill, max abs diff: k {float((cf.k - cr.k).abs().max())}, "
+          f"v {float((cf.v - cr.v).abs().max())}")
+
+    def compare(what, a, b):
+        a, b = a.float(), b.float()
+        smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{what}: non-finite logits")
+        err = float((a - b).abs().max())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        print(f"  {what}: max abs diff {err} (largest |logit| {float(b.abs().max())}; "
+              f"argmax agrees on {agree:.2f} of rows)")
+        smoke.check(err <= LM_LOGIT_ATOL, f"{what}: flash and reference logits differ by {err}")
+
+    compare("prefill last-token logits", lf, lr)
+    for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, LM_BATCH, 1))):
+        t = torch.as_tensor(tok, device=dev)
+        lf, cf = api.decode_step(ctx_f, model, t, cf)
+        lr, cr = api.decode_step(ctx_r, model, t, cr)
+        compare(f"teacher-forced decode step {i}", lf, lr)
+
+
 def small_agreement(smoke: Smoke, dev) -> None:
     from repro_torch.core import Comm, MigratoryStrategy, bucketize, generate_alignment_pair
     from repro_torch.core import partition_ell, pick_grid
@@ -289,15 +414,16 @@ def small_agreement(smoke: Smoke, dev) -> None:
     torch.testing.assert_close(s_c, s_l, rtol=0, atol=1e-6)
 
 
-def profile_requests(inputs: dict) -> None:
-    """One warm request of each op under torch.profiler: the device's busy
-    time (sum of kernel time; one stream, so nothing overlaps) against the
-    call's wall time, and the kernels that take it. The profiler's own
-    overhead is inside the wall time."""
+def profile_requests(inputs: dict, lm: "dict | None") -> None:
+    """One warm request of each op, one LM prefill and one decode step under
+    torch.profiler: the device's busy time (sum of kernel time; one stream,
+    so nothing overlaps) against the call's wall time, and the kernels that
+    take it. The profiler's own overhead is inside the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import MigratoryStrategy
     from repro_torch.engine import CudaSubstrate, Request, build_plan, compile_plan
+    from repro_torch.models import Ctx, api
 
     sub = CudaSubstrate(inputs["spmv"].x.device)
     requests = {
@@ -306,13 +432,23 @@ def profile_requests(inputs: dict) -> None:
         "bfs": Request("bfs", inputs["bfs"], None, sub),
         "gsana (PAIR)": Request("gsana", inputs["gsana"], None, sub),
     }
-    for name, req in requests.items():
-        compiled = compile_plan(build_plan(req.op, req.inputs, req.strategy, req.substrate))
-        compiled()  # warm: the plan cache already holds this executor
+    calls = {name: compile_plan(build_plan(req.op, req.inputs, req.strategy, req.substrate))
+             for name, req in requests.items()}
+    if lm is not None:
+        ctx, model = Ctx(lm["cfg"]), lm["model"]
+        tokens = torch.as_tensor(lm["prompts"], device=model.embed.device)
+        _, caches = api.prefill(ctx, model, tokens, LM_PROMPT + LM_GEN)
+        # each call writes the same cache entry (the caches' length stays)
+        calls[f"LM prefill ({LM_BATCH}x{LM_PROMPT}, flash)"] = (
+            lambda: api.prefill(ctx, model, tokens, LM_PROMPT + LM_GEN))
+        calls[f"LM decode step ({LM_BATCH} rows, {LM_PROMPT} cached)"] = (
+            lambda: api.decode_step(ctx, model, tokens[:, -1:], caches))
+    for name, call in calls.items():
+        call()  # warm: the plan cache already holds each executor
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            compiled()
+            call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
@@ -326,7 +462,17 @@ def profile_requests(inputs: dict) -> None:
         share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
                           for e in top)
         print(f"  {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-              f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %); {share}", flush=True)
+              f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {sum(e.count for e in events)} kernels; "
+              f"{share}", flush=True)
+
+
+def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, plain_ms, bound_ms,
+               bound_by, library_ms) -> None:
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    smoke.kernels.append(row)
+    print("  " + json.dumps(row), flush=True)
 
 
 def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
@@ -340,12 +486,8 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
     from repro_torch.kernels.topk_sim.ops import pair_planes
 
-    def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms):
-        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        smoke.kernels.append(row)
-        print("  " + json.dumps(row), flush=True)
+    def entry(*args):
+        kernel_row(smoke, launches, *args)
 
     # -- SpMV: the cuda adapter's (P*R_p, K) planes and grain -------------------
     a = inputs["spmv"].a
@@ -374,8 +516,13 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
           float(err.max()), time_ms(lambda: spmv_ell(cols, vals, x, block_rows=grain), 50),
           time_ms(lambda: spmv_ell_plain(cols, vals, x), 20), b_ms, b_by, library_ms)
     plan = build_stripe_plan(cols, grain)
+    y_s = spmv(cols, vals, x, variant="stripe", stripe_plan=plan)
+    err = (y_s - y_p).abs()
+    smoke.check(bool((err <= SPMV_ATOL + SPMV_RTOL * y_p.abs()).all()),
+                f"spmv stripe variant disagrees with spmv_ell_plain: max abs err {float(err.max())}")
     stripe_ms = time_ms(lambda: spmv(cols, vals, x, variant="stripe", stripe_plan=plan), 20)
-    print(f"  spmv stripe variant (same kernel, per-width launches): {stripe_ms} ms")
+    print(f"  spmv stripe variant (same kernel, per-width launches): {stripe_ms} ms, "
+          f"max abs err vs spmv_ell_plain {float(err.max())}")
 
     # -- BFS: the round with the largest frontier ------------------------------
     adj = _adj_global(inputs["bfs"].g).contiguous()
@@ -432,6 +579,71 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
           "src/repro/kernels/topk_sim/kernel.py:50", err,
           time_ms(lambda: topk_sim(fv, fu, mv, mu, **kw), 10),
           time_ms(lambda: topk_sim_plain(fv, fu, mv, mu, **kw), 3, warmup=1), b_ms, b_by, None)
+
+
+# (bh_q, bh_kv, sq, skv, causal, window): GQA, MQA, q the tail of a longer
+# kv, a sliding window, non-causal, lengths that are not tile multiples
+FLASH_SMALL_CASES = [
+    (8, 4, 64, 64, True, None), (8, 1, 96, 96, True, None), (4, 4, 64, 192, True, None),
+    (8, 4, 130, 130, True, 48), (2, 1, 100, 70, False, None), (2, 2, 70, 40, True, None),
+    (2, 1, 64, 200, False, 16),
+]
+
+
+def causal_pairs(sq: int, skv: int) -> int:
+    """(q, k) pairs the causal mask leaves visible, q aligned to the kv tail."""
+    return int(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())
+
+
+def flash_vs_plain(smoke: Smoke, lm: dict) -> None:
+    """flash_attn against its plain version (the same 64-key blocks) on
+    layer 0's q, k, v from the prefill, then on small float32 cases; times
+    kernel, plain version and scaled_dot_product_attention (a yardstick,
+    never called by the port)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_plain, flash_attn
+
+    q, k, v = lm["qkv"]  # (B, Hq, S, D), (B, Hkv, S, D), as the model hands them over
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf, kf, vf = q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d), v.reshape(b * hkv, skv, d)
+    got = flash_attn(qf, kf, vf)
+    want = flash_attention_plain(qf, kf, vf, block_k=64)
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    try:
+        lib_err = float((library().reshape(got.shape).float() - got.float()).abs().max())
+        library_ms = time_ms(library, 20)
+    except RuntimeError as e:  # no GQA attention in this build
+        print(f"  scaled_dot_product_attention yardstick unavailable: {e}")
+        lib_err, library_ms = None, None
+    print(f"  layer 0, q {tuple(qf.shape)} k/v {tuple(kf.shape)} {q.dtype}: max abs err "
+          f"{err} vs the plain version, {lib_err} vs scaled_dot_product_attention")
+
+    gen = torch.Generator().manual_seed(0)
+    for bhq, bhkv, s_q, s_kv, causal, window in FLASH_SMALL_CASES:
+        for dd in (64, 128):
+            qs, ks, vs = (torch.randn((n, s, dd), generator=gen).to(q.device)
+                          for n, s in ((bhq, s_q), (bhkv, s_kv), (bhkv, s_kv)))
+            torch.testing.assert_close(
+                flash_attn(qs, ks, vs, causal=causal, window=window),
+                flash_attention_plain(qs, ks, vs, causal=causal, window=window, block_k=64),
+                **FLASH_F32_TOL, msg=lambda m: f"float32 case {(bhq, bhkv, s_q, s_kv, causal, window, dd)}: {m}")
+    print(f"  {2 * len(FLASH_SMALL_CASES)} small float32 cases agree within {FLASH_F32_TOL}")
+
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
+    n_ops = 4 * d * b * hq * causal_pairs(sq, skv)  # QK^T and PV, 2 flops a MAC
+    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_PER_S)
+    kernel_row(smoke, {"flash_attn": lm["launches"]}, "flash_attn", "src/repro_torch/csrc/flash_attn.cu",
+               "src/repro/kernels/flash_attention/kernel.py:25", err,
+               time_ms(lambda: flash_attn(qf, kf, vf), 20),
+               time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=64), 3, warmup=1),
+               b_ms, b_by, library_ms)
 
 
 def finish(smoke: Smoke) -> int:

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("spmv_ell", "bfs_expand", "topk_sim")
+SOURCES = ("spmv_ell", "bfs_expand", "topk_sim", "flash_attn")
 # -fmad=false: no multiply-add contraction, so the kernels round like the
 # plain versions and a tie in topk_sim's scores cannot move (see topk_sim.cu)
 NVCC_FLAGS = (

@@ -19,6 +19,8 @@ from repro_torch.engine import (
 )
 from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
 from repro_torch.kernels.bfs.ops import bfs_cuda
+from repro_torch.kernels.flash_attention.kernel import flash_attention_plain, flash_attn
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv.ops import spmv
 from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
@@ -127,3 +129,62 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="unsupported shape"):
         topk_sim(*planes, t1=16, t2=16, t3=64, k=4)  # k > B
     assert np.isfinite(topk_sim(*planes, t1=16, t2=16, t3=64, k=2)[0].cpu().numpy()).all()
+
+
+# (bh_q, bh_kv, sq, skv, causal, window): every mask kind, ragged lengths
+FLASH_CASES = [
+    (8, 4, 64, 64, True, None),      # GQA causal
+    (8, 1, 96, 96, True, None),      # MQA, not a tile multiple
+    (4, 4, 64, 192, True, None),     # q the tail of a longer kv (chunked prefill)
+    (8, 4, 130, 130, True, 48),      # sliding window, ragged
+    (2, 1, 100, 70, False, None),    # non-causal, q longer than kv
+    (2, 2, 70, 40, True, None),      # causal, q longer than kv: early rows fully masked
+    (2, 1, 64, 200, False, 16),      # window without the causal mask
+]
+# float32: sums in another order than the plain version. bf16: the output
+# rounds to bf16 (one ulp is 2**-8 relative) and p rounds to bf16 before PV,
+# so a value near a rounding boundary may land one ulp apart
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
+    bhq, bhkv, sq, skv, causal, window = case
+    gen = torch.Generator().manual_seed(sq * 1000 + skv + d)
+    q, k, v = (torch.randn((n, s, d), generator=gen).to(cuda, dtype)
+               for n, s in ((bhq, sq), (bhkv, skv), (bhkv, skv)))
+    before = flash_attn.launches
+    got = flash_attn(q, k, v, causal=causal, window=window)
+    assert flash_attn.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, block_k=64)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if causal and sq > skv:  # rows that see no key output 0
+        assert not got[:, : sq - skv].any()
+
+
+def test_flash_attention_op_on_the_card(cuda):
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 24, 200, 128), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((2, 8, 200, 128), generator=gen).to(cuda, torch.bfloat16) for _ in "kv")
+    got = flash_attention(q, k, v)
+    want = flash_attention(q, k, v, use_kernel=False)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+
+
+def test_flash_attn_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((4, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attn(q, q, q)
+    q = torch.zeros((4, 8, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        flash_attn(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1))
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attn(q, q[:3], q[:3])
+    with pytest.raises(ValueError, match="all be on CUDA"):
+        flash_attn(q, q.cpu(), q.cpu())
