@@ -29,15 +29,19 @@ result, without them or outside a checkout of the repository. In order:
    (device busy time against wall time, kernel count, top kernels);
 7. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
-   with CUDA events, beside the least time the card could take (bound);
-   flash attention on layer 0's q, k, v captured from the prefill, and on
-   small float32 cases of every mask kind.
+   with CUDA events, beside the least time the card could take (bound),
+   the share of it reached and the rate (GB/s where bytes bound the
+   kernel, TFLOP/s where operations do); flash attention on layer 0's q, k,
+   v captured from the prefill, at the bf16 kernel's k tile, and on small
+   float32 cases of every mask kind; and counts the tensor-core
+   instructions (``cuobjdump -sass``) in the built flash_attn library.
 
 Prints RunReport rows, then a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -64,8 +68,9 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TEACHER_STEPS = "llama3.2-3b", 4, 2048,
 # two differed by 0.16 to 0.22; an error in either branch (a mask, a head
 # map, a position) moves logits by whole units
 LM_LOGIT_ATOL = 0.5
-# the flash kernel against its plain version at the same k blocks (64): the
-# output rounds to bf16, one ulp is 2**-8 relative
+# the flash kernel against its plain version at the same k blocks
+# (KERNEL_BLOCK_K in bf16): the output rounds to bf16, one ulp is 2**-8
+# relative
 FLASH_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=1e-5)  # float32 sums in another order
 
@@ -466,11 +471,19 @@ def profile_requests(inputs: dict, lm: "dict | None") -> None:
               f"{share}", flush=True)
 
 
-def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, plain_ms, bound_ms,
-               bound_by, library_ms) -> None:
+def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, plain_ms, n_bytes,
+               n_ops, library_ms, peak_ops: float = PEAK_FP32_PER_S) -> None:
+    """One kernel's row: its bound from the bytes and operations its inputs
+    need, the share of that bound reached, and the rate that bounds it."""
+    bound_ms, bound_by = bound(n_bytes, n_ops, peak_ops)
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+           "bound_share": bound_ms / ms}
+    if bound_by == "bytes":
+        row["gbps"] = n_bytes / ms / 1e6
+    else:
+        row["tflops"] = n_ops / ms / 1e9
     smoke.kernels.append(row)
     print("  " + json.dumps(row), flush=True)
 
@@ -511,10 +524,10 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
         print(f"  torch.sparse CSR yardstick unavailable: {e}")
         library_ms = None
     r, n = p * rp, a.shape[1]
-    b_ms, b_by = bound(r * k * 8 + n * 4 + r * 4, 2 * r * k)
     entry("spmv_ell", "src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv/kernel.py:31",
           float(err.max()), time_ms(lambda: spmv_ell(cols, vals, x, block_rows=grain), 50),
-          time_ms(lambda: spmv_ell_plain(cols, vals, x), 20), b_ms, b_by, library_ms)
+          time_ms(lambda: spmv_ell_plain(cols, vals, x), 20), r * k * 8 + n * 4 + r * 4, 2 * r * k,
+          library_ms)
     plan = build_stripe_plan(cols, grain)
     y_s = spmv(cols, vals, x, variant="stripe", stripe_plan=plan)
     err = (y_s - y_p).abs()
@@ -551,11 +564,11 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
         out.fill_(UNVISITED)
         out.scatter_reduce_(0, dst, prop, "amin")
 
-    b_ms, b_by = bound(n_pad * 1 + max(sizes) * kk * 4 + n_pad * 4, 0)
     entry("bfs_expand", "src/repro_torch/csrc/bfs_expand.cu",
           "src/repro/kernels/bfs/kernel.py:31", 0.0,
           time_ms(lambda: bfs_expand(adj, frontier, block_rows=block), 20),
-          time_ms(lambda: bfs_expand_plain(adj, frontier), 10), b_ms, b_by, time_ms(library, 10))
+          time_ms(lambda: bfs_expand_plain(adj, frontier), 10),
+          n_pad * 1 + max(sizes) * kk * 4 + n_pad * 4, 0, time_ms(library, 10))
 
     # -- topk_sim: the PAIR planes of the main path ----------------------------
     gi = inputs["gsana"]
@@ -574,11 +587,11 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     b_rows = fu.shape[1]
     pairs = float((mv.sum(1) * mu.sum(1)).sum())
     n_bytes = n_tasks * ((a_rows + b_rows) * (f + 1) * 4 + a_rows * kw["k"] * 8)
-    b_ms, b_by = bound(n_bytes, pairs * (2 * (t1 + t2 + t3) + 19))
     entry("topk_sim", "src/repro_torch/csrc/topk_sim.cu",
           "src/repro/kernels/topk_sim/kernel.py:50", err,
           time_ms(lambda: topk_sim(fv, fu, mv, mu, **kw), 10),
-          time_ms(lambda: topk_sim_plain(fv, fu, mv, mu, **kw), 3, warmup=1), b_ms, b_by, None)
+          time_ms(lambda: topk_sim_plain(fv, fu, mv, mu, **kw), 3, warmup=1), n_bytes,
+          pairs * (2 * (t1 + t2 + t3) + 19), None)
 
 
 # (bh_q, bh_kv, sq, skv, causal, window): GQA, MQA, q the tail of a longer
@@ -595,21 +608,47 @@ def causal_pairs(sq: int, skv: int) -> int:
     return int(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())
 
 
+def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
+    library's SASS, from the toolkit's cuobjdump (beside ``nvcc``) or the
+    copy in Triton's package; None where neither is found."""
+    cands = [Path(nvcc).with_name("cuobjdump")]
+    spec = importlib.util.find_spec("triton")  # located, not imported
+    if spec is not None and spec.submodule_search_locations:
+        cands.append(Path(spec.submodule_search_locations[0]) / "backends" / "nvidia" / "bin" / "cuobjdump")
+    tool = next((c for c in cands if c.exists()), None)
+    if tool is None:
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout.splitlines()
+    return {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HGMMA", "HMMA")}
+
+
 def flash_vs_plain(smoke: Smoke, lm: dict) -> None:
-    """flash_attn against its plain version (the same 64-key blocks) on
-    layer 0's q, k, v from the prefill, then on small float32 cases; times
-    kernel, plain version and scaled_dot_product_attention (a yardstick,
-    never called by the port)."""
+    """flash_attn against its plain version (at the bf16 kernel's k tile) on
+    layer 0's q, k, v from the prefill, then on small float32 cases (at the
+    float32 kernel's 64-key tile); times kernel, plain version and
+    scaled_dot_product_attention (a yardstick, never called by the port)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_plain, flash_attn
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import (
+        KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+    )
+
+    counts = tensor_core_instructions(build.library_path("flash_attn"), build.nvcc())
+    if counts is None:
+        print("  flash_attn tensor-core instructions: not measured (no cuobjdump)")
+    else:
+        print(f"  flash_attn tensor-core instructions (cuobjdump -sass): {counts}")
+        smoke.check(counts["HGMMA"] + counts["HMMA"] > 0, "flash_attn: no tensor-core instruction")
 
     q, k, v = lm["qkv"]  # (B, Hq, S, D), (B, Hkv, S, D), as the model hands them over
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qf, kf, vf = q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d), v.reshape(b * hkv, skv, d)
     got = flash_attn(qf, kf, vf)
-    want = flash_attention_plain(qf, kf, vf, block_k=64)
+    want = flash_attention_plain(qf, kf, vf, block_k=KERNEL_BLOCK_K)
     err = float((got.float() - want.float()).abs().max())
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
 
@@ -638,12 +677,11 @@ def flash_vs_plain(smoke: Smoke, lm: dict) -> None:
 
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     n_ops = 4 * d * b * hq * causal_pairs(sq, skv)  # QK^T and PV, 2 flops a MAC
-    b_ms, b_by = bound(n_bytes, n_ops, PEAK_BF16_PER_S)
     kernel_row(smoke, {"flash_attn": lm["launches"]}, "flash_attn", "src/repro_torch/csrc/flash_attn.cu",
                "src/repro/kernels/flash_attention/kernel.py:25", err,
                time_ms(lambda: flash_attn(qf, kf, vf), 20),
-               time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=64), 3, warmup=1),
-               b_ms, b_by, library_ms)
+               time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=KERNEL_BLOCK_K), 3, warmup=1),
+               n_bytes, n_ops, library_ms, PEAK_BF16_PER_S)
 
 
 def finish(smoke: Smoke) -> int:

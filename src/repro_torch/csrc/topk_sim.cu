@@ -16,12 +16,25 @@
 // five terms). At the main path's shapes (36,864 tasks, A = B = 53, F = 101)
 // the bytes take about four times as long as the operations at peak rates.
 //
-// Design: the block stages feat_u and feat_v of its task in shared memory
-// (coalesced loads; about 21 KB each at a bucket cap of 53 and F = 101), then
-// each thread owns one v row: it writes its B scores to its own shared-memory
-// row and runs the k selection passes there. The TPU kernel's running top-k
-// stayed in VMEM; here it stays in shared memory, so the priority lists never
-// touch device memory.
+// Design: 256 threads (8 warps) a task, and shared memory for the two
+// feature tiles only (about 46 KB at a bucket cap of 53 and F = 101, so 4
+// blocks, 32 warps, fit an SM). The block first compacts the valid rows of
+// each tile: only those are loaded (a warp per row, coalesced, by cp.async
+// so that every copy is in flight at once) and scored, and a v row that is
+// not valid gets its k results (-inf, slot 0) at once. A warp then scores a
+// group of up to 6 v rows against every valid u row, lane `l` taking u rows
+// l, l + 32, ...: each u value it loads serves every row of the group, and
+// the v value is a broadcast. The histograms are read 16 bytes at a time:
+// rows are shifted so that they start on a 16-byte boundary, and the row
+// stride is an odd number of 16-byte units, so the lanes of a quarter-warp
+// hit distinct banks. Scores stay in registers. Top-k is k rounds of one
+// integer warp max (a valid score is positive, so its bits order as
+// integers do, and those of -inf are negative) and a ballot for the lowest
+// slot holding it; the winner's lane then sets that score to -inf.
+// Compaction keeps the slots in order, and a row whose valid slots are used
+// up meets -inf everywhere and takes slot 0 at -inf, exactly as the TPU
+// kernel's argmax over an all -inf row does. The TPU kernel kept its
+// running top-k in VMEM; here it never leaves registers.
 //
 // Rounding: the operations run in the reference's order (histogram sums in
 // index order, which are exact since every term is an integer-valued float;
@@ -31,66 +44,233 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float overlap(const float* v, const float* u, int lo, int width,
-                                         int count_slot) {
-  float inter = 0.0f;
-  for (int t = lo; t < lo + width; ++t) inter += fminf(v[t], u[t]);
-  const float denom = fmaxf(fmaxf(v[count_slot], u[count_slot]), 1.0f);
-  return inter / denom;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_B = 1024;  // u rows a task may have (32 per lane)
+
+// 4 bytes from device memory into shared memory, without a register (cp.async)
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
-__global__ void topk_sim_kernel(const float* __restrict__ feat_v, const float* __restrict__ feat_u,
-                                const float* __restrict__ mask_v, const float* __restrict__ mask_u,
-                                float* __restrict__ scores, int* __restrict__ idx, int a_rows,
-                                int b_rows, int f, int t1, int t2, int t3, int k) {
-  extern __shared__ float smem[];
-  float* su = smem;                  // (B, F) feat_u of this task
-  float* sv = su + b_rows * f;       // (A, F) feat_v of this task
-  float* ss = sv + a_rows * f;       // (A, B) scores, one row per thread
-  const long long p = blockIdx.x;
-  const float* gu = feat_u + p * b_rows * f;
-  const float* gv = feat_v + p * a_rows * f;
-  for (int i = threadIdx.x; i < b_rows * f; i += blockDim.x) su[i] = gu[i];
-  for (int i = threadIdx.x; i < a_rows * f; i += blockDim.x) sv[i] = gv[i];
-  __syncthreads();
+// Rows live in shared memory with column c of the feature plane at c + SHIFT,
+// so that the histograms (from column 5) start on a 16-byte boundary.
+constexpr int SHIFT = 3;
 
-  const int a = threadIdx.x;
-  if (a >= a_rows) return;
-  const float* v = sv + a * f;
-  float* s = ss + a * b_rows;
-  const bool v_ok = mask_v[p * a_rows + a] > 0.0f;
-  for (int b = 0; b < b_rows; ++b) {
-    float score = -INFINITY;
-    if (v_ok && mask_u[p * b_rows + b] > 0.0f) {
-      const float* u = su + b * f;
-      const float s_deg = 1.0f / (1.0f + fabsf(v[0] - u[0]));
-      const float s_typ = v[1] == u[1] ? 1.0f : 0.0f;
-      const float s_nt = overlap(v, u, 5, t1, 2);
-      const float s_et = overlap(v, u, 5 + t1, t2, 3);
-      const float s_at = overlap(v, u, 5 + t1 + t2, t3, 4);
-      score = 0.2f * ((((s_deg + s_typ) + s_nt) + s_et) + s_at);
+// inter[r][j] += sum over columns [lo, hi) of min(v_r, u_j), in index order
+template <int J, int R>
+__device__ __forceinline__ void min_sums(float (&inter)[R][J], const float* su, const float* sv,
+                                         const int (&u)[J], const int (&v)[R], int n_rows, int lo,
+                                         int hi) {
+  lo += SHIFT;
+  hi += SHIFT;
+  const int body = min(hi, (lo + 3) & ~3);  // scalar up to the first 16-byte boundary
+  int c = lo;
+  for (; c < body; ++c) {
+    float ut[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) ut[j] = su[u[j] + c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rows) break;
+      const float vt = sv[v[r] + c];
+#pragma unroll
+      for (int j = 0; j < J; ++j) inter[r][j] += fminf(vt, ut[j]);
     }
-    s[b] = score;
   }
-  float* out_s = scores + (p * a_rows + a) * k;
-  int* out_i = idx + (p * a_rows + a) * k;
-  for (int j = 0; j < k; ++j) {
-    // argmax with a strict '>' keeps the first index among equal maxima
-    float best = s[0];
-    int best_b = 0;
-    for (int b = 1; b < b_rows; ++b) {
-      if (s[b] > best) {
-        best = s[b];
-        best_b = b;
+  for (; c + 4 <= hi; c += 4) {  // four columns a load
+    float4 ut[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) ut[j] = *reinterpret_cast<const float4*>(su + u[j] + c);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rows) break;
+      const float4 vt = *reinterpret_cast<const float4*>(sv + v[r] + c);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        inter[r][j] += fminf(vt.x, ut[j].x);
+        inter[r][j] += fminf(vt.y, ut[j].y);
+        inter[r][j] += fminf(vt.z, ut[j].z);
+        inter[r][j] += fminf(vt.w, ut[j].w);
       }
     }
-    out_s[j] = best;
-    out_i[j] = best_b;
-    s[best_b] = -INFINITY;
   }
+  for (; c < hi; ++c) {
+    float ut[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) ut[j] = su[u[j] + c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rows) break;
+      const float vt = sv[v[r] + c];
+#pragma unroll
+      for (int j = 0; j < J; ++j) inter[r][j] += fminf(vt, ut[j]);
+    }
+  }
+}
+
+// Score v rows a0 + WARPS * r (r < n_rows <= R) of sv against the nu valid
+// u rows, J per lane, and write each row's top k. J * 32 >= nu.
+template <int J, int R>
+__device__ __forceinline__ void score_rows(const float* su, const float* sv, int ld, int nu,
+                                           const int* uslot, const int* vrow, int a0, int n_rows,
+                                           int t1, int t2, int t3, int k, float* out_s,
+                                           int* out_i) {
+  const int lane = threadIdx.x % 32;
+  int u[J];  // offsets of the lane's u rows (a row past nu reads the last one)
+#pragma unroll
+  for (int j = 0; j < J; ++j) u[j] = max(min(lane + 32 * j, nu - 1), 0) * ld;
+  int v[R];  // offsets of the group's v rows
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = (a0 + WARPS * min(r, n_rows - 1)) * ld;
+  float s[R][J];  // the running sum of the five terms, then the score
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n_rows) break;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float s_deg = 1.0f / (1.0f + fabsf(sv[v[r] + SHIFT] - su[u[j] + SHIFT]));
+      const float s_typ = sv[v[r] + SHIFT + 1] == su[u[j] + SHIFT + 1] ? 1.0f : 0.0f;
+      s[r][j] = s_deg + s_typ;
+    }
+  }
+  const int seg_lo[3] = {5, 5 + t1, 5 + t1 + t2};
+  const int seg_w[3] = {t1, t2, t3};
+#pragma unroll
+  for (int seg = 0; seg < 3; ++seg) {
+    float inter[R][J];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < J; ++j) inter[r][j] = 0.0f;
+    min_sums<J, R>(inter, su, sv, u, v, n_rows, seg_lo[seg], seg_lo[seg] + seg_w[seg]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= n_rows) break;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float denom =
+            fmaxf(fmaxf(sv[v[r] + SHIFT + 2 + seg], su[u[j] + SHIFT + 2 + seg]), 1.0f);
+        s[r][j] = s[r][j] + inter[r][j] / denom;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r >= n_rows) break;
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[r][j] = lane + 32 * j < nu ? 0.2f * s[r][j] : -INFINITY;
+    const int a = vrow[a0 + WARPS * r];
+    for (int round = 0; round < k; ++round) {
+      // A valid score is positive, so its bits order as integers do, and
+      // -inf's bits are negative: the warp's best is one integer max. The
+      // lowest slot holding it wins: slot lane + 32 j, lowest j first.
+      int best = __float_as_int(s[r][0]);
+#pragma unroll
+      for (int j = 1; j < J; ++j) best = max(best, __float_as_int(s[r][j]));
+      best = __reduce_max_sync(0xffffffffu, best);
+      int pos = 0;
+#pragma unroll
+      for (int j = J - 1; j >= 0; --j) {
+        const unsigned holders = __ballot_sync(0xffffffffu, __float_as_int(s[r][j]) == best);
+        if (holders) pos = 32 * j + __ffs(holders) - 1;
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        if (pos == lane + 32 * j) s[r][j] = -INFINITY;
+      if (lane == 0) {
+        // all -inf: the valid slots are used up, and argmax takes slot 0
+        const float score = __int_as_float(best);
+        out_s[a * k + round] = score;
+        out_i[a * k + round] = score == -INFINITY ? 0 : uslot[pos];
+      }
+    }
+  }
+}
+
+// J = u rows per lane (B <= 32 * J), R = v rows per warp and group
+template <int J, int R>
+__global__ void __launch_bounds__(THREADS, J <= 2 ? 4 : 1)
+topk_sim_kernel(const float* __restrict__ feat_v, const float* __restrict__ feat_u,
+                const float* __restrict__ mask_v, const float* __restrict__ mask_u,
+                float* __restrict__ scores, int* __restrict__ idx, int a_rows, int b_rows, int f,
+                int ld, int t1, int t2, int t3, int k) {
+  extern __shared__ float smem[];
+  float* su = smem;                                       // (B, ld) valid u rows, compacted
+  float* sv = su + b_rows * ld;                           // (A, ld) valid v rows, compacted
+  int* uslot = reinterpret_cast<int*>(sv + a_rows * ld);  // compacted -> u slot
+  int* vrow = uslot + b_rows;                              // compacted -> v row
+  __shared__ int n_valid[2];
+  const long long p = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* out_s = scores + p * a_rows * k;
+  int* out_i = idx + p * a_rows * k;
+
+  if (warp < 2) {  // warp 0 compacts the u slots, warp 1 the v rows
+    const int n = warp == 0 ? b_rows : a_rows;
+    const float* mask = (warp == 0 ? mask_u + p * b_rows : mask_v + p * a_rows);
+    int* slots = warp == 0 ? uslot : vrow;
+    int count = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const bool ok = i < n && mask[i] > 0.0f;
+      const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+      if (ok) slots[count + __popc(ballot & ((1u << lane) - 1))] = i;
+      count += __popc(ballot);
+      if (warp == 1 && i < n && !ok)
+        for (int j = 0; j < k; ++j) {
+          out_s[i * k + j] = -INFINITY;
+          out_i[i * k + j] = 0;
+        }
+    }
+    if (lane == 0) n_valid[warp] = count;
+  }
+  __syncthreads();
+  const int nu = n_valid[0], nv = n_valid[1];
+  const int width = 5 + t1 + t2 + t3;  // the columns the score reads
+  const float* gu = feat_u + p * b_rows * f;
+  const float* gv = feat_v + p * a_rows * f;
+  for (int i = warp; i < nu + nv; i += WARPS) {  // every copy in flight at once
+    const bool is_u = i < nu;
+    const float* src = is_u ? gu + uslot[i] * f : gv + vrow[i - nu] * f;
+    float* dst = (is_u ? su + i * ld : sv + (i - nu) * ld) + SHIFT;
+    for (int c = lane; c < width; c += 32) copy_async(dst + c, src + c);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  for (int a0 = warp; a0 < nv; a0 += WARPS * R) {
+    const int n_rows = min(R, (nv - a0 + WARPS - 1) / WARPS);
+    if (J == 2 && nu <= 32)  // half the lanes' second u row would be idle
+      score_rows<1, R>(su, sv, ld, nu, uslot, vrow, a0, n_rows, t1, t2, t3, k, out_s, out_i);
+    else
+      score_rows<J, R>(su, sv, ld, nu, uslot, vrow, a0, n_rows, t1, t2, t3, k, out_s, out_i);
+  }
+}
+
+template <int J, int R>
+int launch(const float* feat_v, const float* feat_u, const float* mask_v, const float* mask_u,
+           float* scores, int* idx, long long n_tasks, int a_rows, int b_rows, int f, int ld,
+           int t1, int t2, int t3, int k, cudaStream_t stream) {
+  const size_t shared = sizeof(float) * static_cast<size_t>(a_rows + b_rows) * ld +
+                        sizeof(int) * static_cast<size_t>(a_rows + b_rows);
+  // above 48 KB a block's dynamic shared memory must be opted into; a launch
+  // asking for more than the SM offers fails and the caller sees the error
+  cudaError_t err = cudaFuncSetAttribute(topk_sim_kernel<J, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(shared));
+  if (err != cudaSuccess) return err;
+  topk_sim_kernel<J, R><<<static_cast<unsigned>(n_tasks), THREADS, shared, stream>>>(
+      feat_v, feat_u, mask_v, mask_u, scores, idx, a_rows, b_rows, f, ld, t1, t2, t3, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -107,20 +287,16 @@ extern "C" int topk_sim_f32(const float* feat_v, const float* feat_u, const floa
                             int a_rows, int b_rows, int f, int t1, int t2, int t3, int k,
                             void* stream) {
   if (n_tasks == 0 || a_rows == 0 || k == 0) return cudaSuccess;
-  if (b_rows < 1 || k > b_rows || a_rows > 1024 || 5 + t1 + t2 + t3 > f ||
+  if (b_rows < 1 || k > b_rows || b_rows > MAX_B || 5 + t1 + t2 + t3 > f ||
       n_tasks > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const size_t shared =
-      sizeof(float) * (static_cast<size_t>(a_rows + b_rows) * f + static_cast<size_t>(a_rows) * b_rows);
-  // above 48 KB a block's dynamic shared memory must be opted into; a launch
-  // asking for more than the SM offers fails and the caller sees the error
-  cudaError_t err = cudaFuncSetAttribute(topk_sim_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(shared));
-  if (err != cudaSuccess) return err;
-  const int threads = ((a_rows + 31) / 32) * 32;
-  topk_sim_kernel<<<static_cast<unsigned>(n_tasks), threads, shared,
-                    static_cast<cudaStream_t>(stream)>>>(feat_v, feat_u, mask_v, mask_u, scores,
-                                                         idx, a_rows, b_rows, f, t1, t2, t3, k);
-  return cudaGetLastError();
+  // a multiple of 4 floats that is an odd number of 16-byte units: the 8
+  // lanes of a quarter-warp reading 16 bytes of 8 u rows hit distinct banks
+  const int ld = (f + SHIFT + 3) / 8 * 8 + 4;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (b_rows <= 64)
+    return launch<2, 6>(feat_v, feat_u, mask_v, mask_u, scores, idx, n_tasks, a_rows, b_rows, f,
+                        ld, t1, t2, t3, k, s);
+  return launch<MAX_B / 32, 1>(feat_v, feat_u, mask_v, mask_u, scores, idx, n_tasks, a_rows,
+                               b_rows, f, ld, t1, t2, t3, k, s);
 }

@@ -5,9 +5,11 @@ and its plain PyTorch version.
 :func:`flash_attention_plain` on CPU tensors
 (:mod:`repro_torch.kernels.runtime`). Queries are ``(B*Hq, Sq, D)``, keys
 and values ``(B*Hkv, Skv, D)``; q row ``bh`` reads kv row ``bh // group``.
-The kernel masks ragged tiles itself, so nothing is padded. Its tiles are
-fixed at 64 x 64; ``block_k`` shapes only the plain version's k blocks,
-which set where its online softmax rounds.
+The kernel masks ragged tiles itself, so nothing is padded. It multiplies
+bf16 on the tensor cores in k tiles of :data:`KERNEL_BLOCK_K` keys and
+float32 on the CUDA cores in k tiles of 64; ``block_k`` shapes only the
+plain version's k blocks, which set where its online softmax rounds, so the
+plain version matches the kernel at the kernel's tile.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from ..runtime import on_card
 
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
+#: keys per k tile of the bf16 (tensor-core) kernel; the float32 kernel's is 64
+KERNEL_BLOCK_K = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

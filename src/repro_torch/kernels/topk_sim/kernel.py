@@ -72,7 +72,7 @@ def topk_sim(
     tensors = (feat_v, feat_u, mask_v, mask_u)
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
         raise TypeError("topk_sim needs contiguous float32 features and masks")
-    if not (1 <= k <= b and a <= 1024 and 5 + t1 + t2 + t3 <= f):
+    if not (1 <= k <= b <= 1024 and 5 + t1 + t2 + t3 <= f):
         raise ValueError(f"unsupported shape: A={a}, B={b}, F={f}, k={k}, vocab={(t1, t2, t3)}")
     scores = torch.empty((p, a, k), dtype=torch.float32, device=feat_v.device)
     idx = torch.empty((p, a, k), dtype=torch.int32, device=feat_v.device)

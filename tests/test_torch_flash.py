@@ -9,7 +9,9 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_reference as jax_reference
-from repro_torch.kernels.flash_attention.kernel import flash_attention_plain, flash_attn
+from repro_torch.kernels.flash_attention.kernel import (
+    KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
@@ -85,6 +87,18 @@ def test_flash_bf16_matches_jax_blockwise(b, hq, hkv, sq, skv, d, causal, window
     (jq, jk, jv), (q, k, v) = _both(arrays, "bfloat16")
     want = jax_flash(jq, jk, jv, causal=causal, window=window, block_q=32, block_k=32)
     got = flash_attention(q, k, v, causal=causal, window=window, block_k=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", CASES)
+def test_flash_bf16_at_the_kernel_tile_matches_jax(b, hq, hkv, sq, skv, d, causal, window):
+    """The oracle the bf16 kernel is held to on the card (the plain version
+    at the kernel's k tile) rounds like the JAX kernel at that block_k."""
+    arrays = _qkv(np.random.default_rng(sq + skv + d), b, hq, hkv, sq, skv, d)
+    (jq, jk, jv), (q, k, v) = _both(arrays, "bfloat16")
+    want = jax_flash(jq, jk, jv, causal=causal, window=window, block_k=KERNEL_BLOCK_K)
+    got = flash_attention(q, k, v, causal=causal, window=window, block_k=KERNEL_BLOCK_K)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
 

@@ -19,7 +19,9 @@ from repro_torch.engine import (
 )
 from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
 from repro_torch.kernels.bfs.ops import bfs_cuda
-from repro_torch.kernels.flash_attention.kernel import flash_attention_plain, flash_attn
+from repro_torch.kernels.flash_attention.kernel import (
+    KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv.ops import spmv
@@ -88,6 +90,32 @@ def test_topk_sim_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
 
 
+def tie_heavy_planes(device):
+    """Every feature row equal, so every valid pair ties: slots must come out
+    lowest first. Task 1 has 2 valid u slots (fewer than k), task 2 none,
+    task 3 more than 32 (two u rows a lane) with some v rows not valid."""
+    p, a, b, t = 4, 6, 40, (16, 16, 64)
+    row = np.abs(np.random.default_rng(9).standard_normal(5 + sum(t))).round().astype(np.float32)
+    fv, fu = np.broadcast_to(row, (p, a, row.size)).copy(), np.broadcast_to(row, (p, b, row.size)).copy()
+    mv, mu = np.ones((p, a), np.float32), np.ones((p, b), np.float32)
+    mu[1] = 0.0
+    mu[1, [5, 17]] = 1.0
+    mu[2] = 0.0
+    mu[3, ::7] = 0.0
+    mv[3, [0, 4]] = 0.0
+    return [torch.as_tensor(x, device=device) for x in (fv, fu, mv, mu)], t
+
+
+def test_topk_sim_kernel_ties_match_plain(cuda):
+    planes, (t1, t2, t3) = tie_heavy_planes(cuda)
+    kw = dict(t1=t1, t2=t2, t3=t3, k=4)
+    s, i = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    assert torch.equal(i, i_p)
+    assert i[1, 0].tolist() == [5, 17, 0, 0] and torch.isneginf(s[1, :, 2:]).all()
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+
+
 def test_engine_cuda_matches_local_on_the_card(cuda):
     a = TS.laplacian_2d(64, device=cuda)
     x = torch.randn(a.n_cols, generator=torch.Generator().manual_seed(2)).to(cuda)
@@ -140,6 +168,7 @@ FLASH_CASES = [
     (2, 1, 100, 70, False, None),    # non-causal, q longer than kv
     (2, 2, 70, 40, True, None),      # causal, q longer than kv: early rows fully masked
     (2, 1, 64, 200, False, 16),      # window without the causal mask
+    (8, 2, 333, 517, True, 200),     # ragged in the bf16 kernel's 128-key tiles, a window
 ]
 # float32: sums in another order than the plain version. bf16: the output
 # rounds to bf16 (one ulp is 2**-8 relative) and p rounds to bf16 before PV,
@@ -159,11 +188,23 @@ def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
     before = flash_attn.launches
     got = flash_attn(q, k, v, causal=causal, window=window)
     assert flash_attn.launches == before + 1
-    want = flash_attention_plain(q, k, v, causal=causal, window=window, block_k=64)
+    # each kernel's k tile: online softmax rounds p at its edges
+    block_k = KERNEL_BLOCK_K if dtype == torch.bfloat16 else 64
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, block_k=block_k)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     if causal and sq > skv:  # rows that see no key output 0
         assert not got[:, : sq - skv].any()
+
+
+def test_flash_attn_bf16_at_a_llama_layer(cuda):
+    """One llama3.2-3b layer's heads (24 q, 8 kv, D 128) over 1024 tokens."""
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn((24, 1024, 128), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((8, 1024, 128), generator=gen).to(cuda, torch.bfloat16) for _ in "kv")
+    got = flash_attn(q, k, v)
+    want = flash_attention_plain(q, k, v, block_k=KERNEL_BLOCK_K)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
 
 
 def test_flash_attention_op_on_the_card(cuda):
