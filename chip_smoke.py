@@ -33,7 +33,8 @@ result, without them or outside a checkout of the repository. In order:
    the share of it reached and the rate (GB/s where bytes bound the
    kernel, TFLOP/s where operations do); flash attention on layer 0's q, k,
    v captured from the prefill, at the bf16 kernel's k tile, and on small
-   float32 cases of every mask kind; and counts the tensor-core
+   float32 cases of every mask kind; topk_sim also at a 32x32 grid, whose
+   buckets (past 64 slots) take its wide instance; and counts the tensor-core
    instructions (``cuobjdump -sass``) in the built flash_attn library.
 
 Prints RunReport rows, then a ``{"kernels": [...]}`` line, the card's name
@@ -489,7 +490,7 @@ def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, pl
 
 
 def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
-    from repro_torch.core import MigratoryStrategy, UNVISITED
+    from repro_torch.core import MigratoryStrategy, UNVISITED, bucketize, pick_grid
     from repro_torch.core.bfs import _adj_global, bfs_rounds
     from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
     from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
@@ -574,8 +575,7 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     gi = inputs["gsana"]
     tasks = pair_tasks(gi.b2.grid, gi.b2.vid.device)
     fv, fu, mv, mu, _ = pair_planes(gi.vs1, gi.vs2, gi.b1, gi.b2, *tasks)
-    t1, t2, t3 = DEFAULT_VOCAB
-    kw = dict(t1=t1, t2=t2, t3=t3, k=min(gi.k, gi.b1.cap))
+    kw = dict(zip(("t1", "t2", "t3"), DEFAULT_VOCAB), k=min(gi.k, gi.b1.cap))
     s_k, i_k = topk_sim(fv, fu, mv, mu, **kw)
     s_p, i_p = topk_sim_plain(fv, fu, mv, mu, **kw)
     smoke.check(torch.equal(i_k, i_p), "topk_sim slots disagree with its plain version")
@@ -583,15 +583,46 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     smoke.check(torch.equal(finite, torch.isfinite(s_k)), "topk_sim: -inf pattern differs")
     err = float((s_k[finite] - s_p[finite]).abs().max())
     smoke.check(err <= 1e-6, f"topk_sim scores differ by {err}")
-    n_tasks, a_rows, f = fv.shape
-    b_rows = fu.shape[1]
-    pairs = float((mv.sum(1) * mu.sum(1)).sum())
-    n_bytes = n_tasks * ((a_rows + b_rows) * (f + 1) * 4 + a_rows * kw["k"] * 8)
     entry("topk_sim", "src/repro_torch/csrc/topk_sim.cu",
           "src/repro/kernels/topk_sim/kernel.py:50", err,
           time_ms(lambda: topk_sim(fv, fu, mv, mu, **kw), 10),
-          time_ms(lambda: topk_sim_plain(fv, fu, mv, mu, **kw), 3, warmup=1), n_bytes,
-          pairs * (2 * (t1 + t2 + t3) + 19), None)
+          time_ms(lambda: topk_sim_plain(fv, fu, mv, mu, **kw), 3, warmup=1),
+          *topk_sim_work(fv, fu, mv, mu, kw), None)
+
+    # -- topk_sim past 64 u slots: the paper's larger buckets (|B| about 128,
+    # a 32x32 grid) take the kernel's wide instance; held and timed here,
+    # off the main path
+    grid = pick_grid(gi.vs1.n, 128)
+    b1, b2 = bucketize(gi.vs1, grid, device=fv.device), bucketize(gi.vs2, grid, device=fv.device)
+    cap = max(b1.cap, b2.cap)
+    b1, b2 = bucketize(gi.vs1, grid, cap=cap, device=fv.device), bucketize(gi.vs2, grid, cap=cap, device=fv.device)
+    planes = pair_planes(gi.vs1, gi.vs2, b1, b2, *pair_tasks(grid, fv.device))[:4]
+    s_k, i_k = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    smoke.check(torch.equal(i_k, i_p), f"topk_sim slots disagree with its plain version at cap {cap}")
+    finite = torch.isfinite(s_p)
+    smoke.check(torch.equal(finite, torch.isfinite(s_k)), f"topk_sim: -inf pattern differs at cap {cap}")
+    err = float((s_k[finite] - s_p[finite]).abs().max())
+    smoke.check(err <= 1e-6, f"topk_sim scores differ by {err} at cap {cap}")
+    bound_ms, bound_by = bound(*topk_sim_work(*planes, kw))
+    print(f"  topk_sim past 64 u slots: {grid}x{grid} grid, {planes[0].shape[0]} tasks of "
+          f"{cap}x{cap} slots, max abs err {err}; "
+          f"{time_ms(lambda: topk_sim(*planes, **kw), 5)} ms, plain version "
+          f"{time_ms(lambda: topk_sim_plain(*planes, **kw), 1, warmup=0)} ms, "
+          f"bound {bound_ms} ms ({bound_by})", flush=True)
+
+
+def topk_sim_work(fv, fu, mv, mu, kw) -> tuple[float, float]:
+    """(bytes, operations) that topk_sim must move and do on these planes:
+    the masks, the scored columns of the valid rows only (a masked slot
+    scores -inf whatever its features), the scores and slots out; the
+    histogram min-sums and five terms of every valid pair."""
+    n_tasks, a_rows, _ = fv.shape
+    width = 5 + kw["t1"] + kw["t2"] + kw["t3"]
+    n_bytes = (n_tasks * (a_rows + fu.shape[1]) * 4 + float(mv.sum() + mu.sum()) * width * 4
+               + n_tasks * a_rows * kw["k"] * 8)
+    pairs = float((mv.sum(1) * mu.sum(1)).sum())
+    return n_bytes, pairs * (2 * (width - 5) + 19)
 
 
 # (bh_q, bh_kv, sq, skv, causal, window): GQA, MQA, q the tail of a longer

@@ -10,11 +10,14 @@
 // invalid pairs score -inf, and k argmax-and-mask passes keep each row's k
 // best (score, u slot), lowest slot first on ties.
 //
-// Bound: device memory. Per task the kernel must read (A + B) * F floats and
-// the masks, and write A * k scores and slots; per valid pair it does
-// 2 * (T1 + T2 + T3) + 19 float32 operations (the histogram min-sums and the
-// five terms). At the main path's shapes (36,864 tasks, A = B = 53, F = 101)
-// the bytes take about four times as long as the operations at peak rates.
+// Bound: device memory. Per task the kernel must read the masks and the
+// 5 + T1 + T2 + T3 feature columns of each valid row (a masked slot scores
+// -inf whatever its features, so those are never read), and write A * k
+// scores and slots; per valid pair it does 2 * (T1 + T2 + T3) + 19 float32
+// operations (the histogram min-sums and the five terms). At the main path's
+// shapes (36,864 tasks of 53 x 53 slots, about 32 of them valid, F = 101)
+// the bytes take about two and a half times as long as the operations at
+// peak rates.
 //
 // Design: 256 threads (8 warps) a task, and shared memory for the two
 // feature tiles only (about 46 KB at a bucket cap of 53 and F = 101, so 4
@@ -22,15 +25,18 @@
 // each tile: only those are loaded (a warp per row, coalesced, by cp.async
 // so that every copy is in flight at once) and scored, and a v row that is
 // not valid gets its k results (-inf, slot 0) at once. A warp then scores a
-// group of up to 6 v rows against every valid u row, lane `l` taking u rows
+// group of v rows against every valid u row, lane `l` taking u rows
 // l, l + 32, ...: each u value it loads serves every row of the group, and
-// the v value is a broadcast. The histograms are read 16 bytes at a time:
-// rows are shifted so that they start on a 16-byte boundary, and the row
-// stride is an odd number of 16-byte units, so the lanes of a quarter-warp
-// hit distinct banks. Scores stay in registers. Top-k is k rounds of one
-// integer warp max (a valid score is positive, so its bits order as
-// integers do, and those of -inf are negative) and a ballot for the lowest
-// slot holding it; the winner's lane then sets that score to -inf.
+// the v value is a broadcast. A lane holds J u rows in registers: 2 where
+// B <= 64 (1 in a task with at most 32 valid u rows), else up to 32, where
+// the loops stop at the task's valid rows, so the work follows them, not B.
+// The histograms are read 16 bytes at a time: rows are shifted so that they
+// start on a 16-byte boundary, and the row stride is an odd number of
+// 16-byte units, so the lanes of a quarter-warp hit distinct banks. Scores
+// stay in registers. Top-k is k rounds of one integer warp max over an
+// order-preserving key of each score (keys compare as the floats do, -inf
+// lowest, whatever their sign) and a ballot for the lowest slot holding it;
+// the winner's lane then sets that key to that of -inf.
 // Compaction keeps the slots in order, and a row whose valid slots are used
 // up meets -inf everywhere and takes slot 0 at -inf, exactly as the TPU
 // kernel's argmax over an all -inf row does. The TPU kernel kept its
@@ -60,15 +66,22 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                : "memory");
 }
 
+// The bits of a float -> an integer key that orders as the float does, for
+// every finite value and -inf, and back: the map is its own inverse. (It
+// orders -0 below +0, but no score is -0: its first term, 1/(1+|d|), is not
+// negative, and no sum with such a term is -0.)
+__device__ __forceinline__ int flip_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
+
 // Rows live in shared memory with column c of the feature plane at c + SHIFT,
 // so that the histograms (from column 5) start on a 16-byte boundary.
 constexpr int SHIFT = 3;
 
-// inter[r][j] += sum over columns [lo, hi) of min(v_r, u_j), in index order
+// inter[r][j] += sum over columns [lo, hi) of min(v_r, u_j), in index order,
+// for the lane's first nj u rows
 template <int J, int R>
 __device__ __forceinline__ void min_sums(float (&inter)[R][J], const float* su, const float* sv,
-                                         const int (&u)[J], const int (&v)[R], int n_rows, int lo,
-                                         int hi) {
+                                         const int (&u)[J], const int (&v)[R], int n_rows, int nj,
+                                         int lo, int hi) {
   lo += SHIFT;
   hi += SHIFT;
   const int body = min(hi, (lo + 3) & ~3);  // scalar up to the first 16-byte boundary
@@ -76,25 +89,35 @@ __device__ __forceinline__ void min_sums(float (&inter)[R][J], const float* su, 
   for (; c < body; ++c) {
     float ut[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) ut[j] = su[u[j] + c];
+    for (int j = 0; j < J; ++j) {
+      if (j >= nj) break;
+      ut[j] = su[u[j] + c];
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= n_rows) break;
       const float vt = sv[v[r] + c];
 #pragma unroll
-      for (int j = 0; j < J; ++j) inter[r][j] += fminf(vt, ut[j]);
+      for (int j = 0; j < J; ++j) {
+        if (j >= nj) break;
+        inter[r][j] += fminf(vt, ut[j]);
+      }
     }
   }
   for (; c + 4 <= hi; c += 4) {  // four columns a load
     float4 ut[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) ut[j] = *reinterpret_cast<const float4*>(su + u[j] + c);
+    for (int j = 0; j < J; ++j) {
+      if (j >= nj) break;
+      ut[j] = *reinterpret_cast<const float4*>(su + u[j] + c);
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= n_rows) break;
       const float4 vt = *reinterpret_cast<const float4*>(sv + v[r] + c);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
+        if (j >= nj) break;
         inter[r][j] += fminf(vt.x, ut[j].x);
         inter[r][j] += fminf(vt.y, ut[j].y);
         inter[r][j] += fminf(vt.z, ut[j].z);
@@ -105,25 +128,35 @@ __device__ __forceinline__ void min_sums(float (&inter)[R][J], const float* su, 
   for (; c < hi; ++c) {
     float ut[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) ut[j] = su[u[j] + c];
+    for (int j = 0; j < J; ++j) {
+      if (j >= nj) break;
+      ut[j] = su[u[j] + c];
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= n_rows) break;
       const float vt = sv[v[r] + c];
 #pragma unroll
-      for (int j = 0; j < J; ++j) inter[r][j] += fminf(vt, ut[j]);
+      for (int j = 0; j < J; ++j) {
+        if (j >= nj) break;
+        inter[r][j] += fminf(vt, ut[j]);
+      }
     }
   }
 }
 
 // Score v rows a0 + WARPS * r (r < n_rows <= R) of sv against the nu valid
-// u rows, J per lane, and write each row's top k. J * 32 >= nu.
+// u rows, up to J per lane, and write each row's top k. J * 32 >= nu.
 template <int J, int R>
 __device__ __forceinline__ void score_rows(const float* su, const float* sv, int ld, int nu,
                                            const int* uslot, const int* vrow, int a0, int n_rows,
                                            int t1, int t2, int t3, int k, float* out_s,
                                            int* out_i) {
   const int lane = threadIdx.x % 32;
+  // the u rows a lane scores, the same in every lane: all J where J <= 2
+  // (bounds known at compile time keep the narrow instance faster than one
+  // read at run time would), else as many as the valid rows need
+  const int nj = J <= 2 ? J : max((nu + 31) / 32, 1);
   int u[J];  // offsets of the lane's u rows (a row past nu reads the last one)
 #pragma unroll
   for (int j = 0; j < J; ++j) u[j] = max(min(lane + 32 * j, nu - 1), 0) * ld;
@@ -136,6 +169,7 @@ __device__ __forceinline__ void score_rows(const float* su, const float* sv, int
     if (r >= n_rows) break;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
+      if (j >= nj) break;
       const float s_deg = 1.0f / (1.0f + fabsf(sv[v[r] + SHIFT] - su[u[j] + SHIFT]));
       const float s_typ = sv[v[r] + SHIFT + 1] == su[u[j] + SHIFT + 1] ? 1.0f : 0.0f;
       s[r][j] = s_deg + s_typ;
@@ -150,12 +184,13 @@ __device__ __forceinline__ void score_rows(const float* su, const float* sv, int
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int j = 0; j < J; ++j) inter[r][j] = 0.0f;
-    min_sums<J, R>(inter, su, sv, u, v, n_rows, seg_lo[seg], seg_lo[seg] + seg_w[seg]);
+    min_sums<J, R>(inter, su, sv, u, v, n_rows, nj, seg_lo[seg], seg_lo[seg] + seg_w[seg]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (r >= n_rows) break;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
+        if (j >= nj) break;
         const float denom =
             fmaxf(fmaxf(sv[v[r] + SHIFT + 2 + seg], su[u[j] + SHIFT + 2 + seg]), 1.0f);
         s[r][j] = s[r][j] + inter[r][j] / denom;
@@ -166,29 +201,37 @@ __device__ __forceinline__ void score_rows(const float* su, const float* sv, int
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r >= n_rows) break;
+    const int neg_key = flip_key(__float_as_int(-INFINITY));
+    int key[J];  // the scores' keys: the rounds select on these
 #pragma unroll
-    for (int j = 0; j < J; ++j) s[r][j] = lane + 32 * j < nu ? 0.2f * s[r][j] : -INFINITY;
+    for (int j = 0; j < J; ++j) {
+      if (j >= nj) break;
+      key[j] = lane + 32 * j < nu ? flip_key(__float_as_int(0.2f * s[r][j])) : neg_key;
+    }
     const int a = vrow[a0 + WARPS * r];
     for (int round = 0; round < k; ++round) {
-      // A valid score is positive, so its bits order as integers do, and
-      // -inf's bits are negative: the warp's best is one integer max. The
-      // lowest slot holding it wins: slot lane + 32 j, lowest j first.
-      int best = __float_as_int(s[r][0]);
+      // the warp's best is one integer max of the keys; the lowest slot
+      // holding it wins: slot lane + 32 j, lowest j first
+      int best = key[0];
 #pragma unroll
-      for (int j = 1; j < J; ++j) best = max(best, __float_as_int(s[r][j]));
+      for (int j = 1; j < J; ++j) {
+        if (j >= nj) break;
+        best = max(best, key[j]);
+      }
       best = __reduce_max_sync(0xffffffffu, best);
       int pos = 0;
 #pragma unroll
       for (int j = J - 1; j >= 0; --j) {
-        const unsigned holders = __ballot_sync(0xffffffffu, __float_as_int(s[r][j]) == best);
+        if (j >= nj) continue;
+        const unsigned holders = __ballot_sync(0xffffffffu, key[j] == best);
         if (holders) pos = 32 * j + __ffs(holders) - 1;
       }
 #pragma unroll
       for (int j = 0; j < J; ++j)
-        if (pos == lane + 32 * j) s[r][j] = -INFINITY;
+        if (pos == lane + 32 * j) key[j] = neg_key;
       if (lane == 0) {
         // all -inf: the valid slots are used up, and argmax takes slot 0
-        const float score = __int_as_float(best);
+        const float score = __int_as_float(flip_key(best));
         out_s[a * k + round] = score;
         out_i[a * k + round] = score == -INFINITY ? 0 : uslot[pos];
       }
@@ -249,7 +292,7 @@ topk_sim_kernel(const float* __restrict__ feat_v, const float* __restrict__ feat
 
   for (int a0 = warp; a0 < nv; a0 += WARPS * R) {
     const int n_rows = min(R, (nv - a0 + WARPS - 1) / WARPS);
-    if (J == 2 && nu <= 32)  // half the lanes' second u row would be idle
+    if (J == 2 && nu <= 32)  // the lanes' second u row would be idle
       score_rows<1, R>(su, sv, ld, nu, uslot, vrow, a0, n_rows, t1, t2, t3, k, out_s, out_i);
     else
       score_rows<J, R>(su, sv, ld, nu, uslot, vrow, a0, n_rows, t1, t2, t3, k, out_s, out_i);

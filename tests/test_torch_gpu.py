@@ -90,10 +90,12 @@ def test_topk_sim_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
 
 
-def tie_heavy_planes(device):
+def tie_heavy_planes():
     """Every feature row equal, so every valid pair ties: slots must come out
     lowest first. Task 1 has 2 valid u slots (fewer than k), task 2 none,
-    task 3 more than 32 (two u rows a lane) with some v rows not valid."""
+    task 3 more than 32 (two u rows a lane) with some v rows not valid.
+    Numpy arrays (fv, fu, mv, mu) and the vocabulary; ``test_torch_gsana``
+    holds the same planes against the Pallas kernel."""
     p, a, b, t = 4, 6, 40, (16, 16, 64)
     row = np.abs(np.random.default_rng(9).standard_normal(5 + sum(t))).round().astype(np.float32)
     fv, fu = np.broadcast_to(row, (p, a, row.size)).copy(), np.broadcast_to(row, (p, b, row.size)).copy()
@@ -103,16 +105,40 @@ def tie_heavy_planes(device):
     mu[2] = 0.0
     mu[3, ::7] = 0.0
     mv[3, [0, 4]] = 0.0
-    return [torch.as_tensor(x, device=device) for x in (fv, fu, mv, mu)], t
+    return (fv, fu, mv, mu), t
 
 
 def test_topk_sim_kernel_ties_match_plain(cuda):
-    planes, (t1, t2, t3) = tie_heavy_planes(cuda)
+    planes, (t1, t2, t3) = tie_heavy_planes()
+    planes = [torch.as_tensor(x, device=cuda) for x in planes]
     kw = dict(t1=t1, t2=t2, t3=t3, k=4)
     s, i = topk_sim(*planes, **kw)
     s_p, i_p = topk_sim_plain(*planes, **kw)
     assert torch.equal(i, i_p)
     assert i[1, 0].tolist() == [5, 17, 0, 0] and torch.isneginf(s[1, :, 2:]).all()
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("b", [100, 500])
+def test_topk_sim_kernel_matches_plain_past_64_u_slots(cuda, b):
+    """B > 64 takes the kernel's wide instance (up to 32 u rows a lane).
+    Tasks hold 0, a few, 33 to 64, and more than 64 valid u slots. The
+    features are small signed integers: scores come out negative as well as
+    positive, and tie often, and the histogram sums stay exact."""
+    rng = np.random.default_rng(b)
+    p, a, t = 5, 12, (8, 8, 16)
+    fv = rng.integers(-3, 4, (p, a, 5 + sum(t))).astype(np.float32)
+    fu = rng.integers(-3, 4, (p, b, 5 + sum(t))).astype(np.float32)
+    mv = (rng.random((p, a)) > 0.2).astype(np.float32)
+    mu = np.zeros((p, b), np.float32)
+    for task, n_valid in enumerate((0, 3, 40, 70, b)):
+        mu[task, rng.choice(b, n_valid, replace=False)] = 1.0
+    planes = [torch.as_tensor(x, device=cuda) for x in (fv, fu, mv, mu)]
+    kw = dict(t1=t[0], t2=t[1], t3=t[2], k=4)
+    s, i = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    assert bool((s_p[mv > 0] < 0).any()), "the case should hold negative scores"
+    assert torch.equal(i, i_p)
     torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
 
 
@@ -170,6 +196,14 @@ FLASH_CASES = [
     (2, 1, 64, 200, False, 16),      # window without the causal mask
     (8, 2, 333, 517, True, 200),     # ragged in the bf16 kernel's 128-key tiles, a window
 ]
+DTYPE_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# every case in both dtypes at both head dims, and in bf16 one llama3.2-3b
+# layer's heads (24 q, 8 kv, D 128) over 1024 tokens
+FLASH_PARAMS = [
+    pytest.param(case, d, dtype, id=f"{'-'.join(map(str, case))}-{d}-{DTYPE_IDS[dtype]}")
+    for case, d, dtype in [(c, d, t) for t in DTYPE_IDS for d in (64, 128) for c in FLASH_CASES]
+    + [((24, 8, 1024, 1024, True, None), 128, torch.bfloat16)]
+]
 # float32: sums in another order than the plain version. bf16: the output
 # rounds to bf16 (one ulp is 2**-8 relative) and p rounds to bf16 before PV,
 # so a value near a rounding boundary may land one ulp apart
@@ -177,9 +211,7 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
              torch.bfloat16: dict(rtol=1.6e-2, atol=1e-2)}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case,d,dtype", FLASH_PARAMS)
 def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
     bhq, bhkv, sq, skv, causal, window = case
     gen = torch.Generator().manual_seed(sq * 1000 + skv + d)
@@ -195,16 +227,6 @@ def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     if causal and sq > skv:  # rows that see no key output 0
         assert not got[:, : sq - skv].any()
-
-
-def test_flash_attn_bf16_at_a_llama_layer(cuda):
-    """One llama3.2-3b layer's heads (24 q, 8 kv, D 128) over 1024 tokens."""
-    gen = torch.Generator().manual_seed(11)
-    q = torch.randn((24, 1024, 128), generator=gen).to(cuda, torch.bfloat16)
-    k, v = (torch.randn((8, 1024, 128), generator=gen).to(cuda, torch.bfloat16) for _ in "kv")
-    got = flash_attn(q, k, v)
-    want = flash_attention_plain(q, k, v, block_k=KERNEL_BLOCK_K)
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
 
 
 def test_flash_attention_op_on_the_card(cuda):

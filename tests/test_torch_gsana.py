@@ -33,6 +33,7 @@ from repro_torch.engine import (
 )
 from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
 from repro_torch.kernels.topk_sim.ops import pack_features, topk_sim_pairs
+from test_torch_gpu import tie_heavy_planes
 
 CPU = "cpu"
 ATOL = 1e-6
@@ -89,24 +90,8 @@ def test_topk_sim_plain_matches_reference_and_pallas(p, a, b, k):
         np.testing.assert_array_equal(i, i_pal)
 
 
-def _tie_heavy_planes():
-    """Every feature row equal, so every valid pair ties: slots come out
-    lowest first. Task 1 has 2 valid u slots (fewer than k), task 2 none,
-    task 3 more than 32 with some v rows not valid."""
-    p, a, b, t = 4, 6, 40, (16, 16, 64)
-    row = np.abs(np.random.default_rng(9).standard_normal(5 + sum(t))).round().astype(np.float32)
-    fv, fu = np.broadcast_to(row, (p, a, row.size)).copy(), np.broadcast_to(row, (p, b, row.size)).copy()
-    mv, mu = np.ones((p, a), np.float32), np.ones((p, b), np.float32)
-    mu[1] = 0.0
-    mu[1, [5, 17]] = 1.0
-    mu[2] = 0.0
-    mu[3, ::7] = 0.0
-    mv[3, [0, 4]] = 0.0
-    return (fv, fu, mv, mu), t
-
-
 def test_topk_sim_plain_ties_match_pallas():
-    planes, (t1, t2, t3) = _tie_heavy_planes()
+    planes, (t1, t2, t3) = tie_heavy_planes()  # the planes the card's tie test uses
     kw = dict(t1=t1, t2=t2, t3=t3, k=4)
     s_pal, i_pal = map(np.asarray, topk_sim_pallas(*planes, interpret=True, **kw))
     s, i = (x.numpy() for x in topk_sim_plain(*map(torch.as_tensor, planes), **kw))
