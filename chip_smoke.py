@@ -31,7 +31,10 @@ result, without them or outside a checkout of the repository. In order:
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
    the share of it reached and the rate (GB/s where bytes bound the
-   kernel, TFLOP/s where operations do); flash attention on layer 0's q, k,
+   kernel, TFLOP/s where operations do); bfs_expand in every round of the
+   main path's BFS, on the graph's (P, V_p, K) planes as ``bfs_cuda`` hands
+   them over, with its occupancy at the main path's grain and the sums of
+   the round times and bounds; flash attention on layer 0's q, k,
    v captured from the prefill, at the bf16 kernel's k tile, and on small
    float32 cases of every mask kind; topk_sim also at a 32x32 grid, whose
    buckets (past 64 slots) take its wide instance; and counts the tensor-core
@@ -473,9 +476,10 @@ def profile_requests(inputs: dict, lm: "dict | None") -> None:
 
 
 def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, plain_ms, n_bytes,
-               n_ops, library_ms, peak_ops: float = PEAK_FP32_PER_S) -> None:
+               n_ops, library_ms, peak_ops: float = PEAK_FP32_PER_S, **extra) -> None:
     """One kernel's row: its bound from the bytes and operations its inputs
-    need, the share of that bound reached, and the rate that bounds it."""
+    need, the share of that bound reached, the rate that bounds it, and any
+    ``extra`` columns."""
     bound_ms, bound_by = bound(n_bytes, n_ops, peak_ops)
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -485,23 +489,24 @@ def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, pl
         row["gbps"] = n_bytes / ms / 1e6
     else:
         row["tflops"] = n_ops / ms / 1e9
+    row.update(extra)
     smoke.kernels.append(row)
     print("  " + json.dumps(row), flush=True)
 
 
 def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     from repro_torch.core import MigratoryStrategy, UNVISITED, bucketize, pick_grid
-    from repro_torch.core.bfs import _adj_global, bfs_rounds
+    from repro_torch.core.bfs import bfs_rounds, global_rows
     from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
-    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
+    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy, bfs_expand_plain
     from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
     from repro_torch.kernels.spmv.ops import spmv
     from repro_torch.kernels.spmv.stripe import build_stripe_plan
     from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
     from repro_torch.kernels.topk_sim.ops import pair_planes
 
-    def entry(*args):
-        kernel_row(smoke, launches, *args)
+    def entry(*args, **extra):
+        kernel_row(smoke, launches, *args, **extra)
 
     # -- SpMV: the cuda adapter's (P*R_p, K) planes and grain -------------------
     a = inputs["spmv"].a
@@ -538,38 +543,56 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     print(f"  spmv stripe variant (same kernel, per-width launches): {stripe_ms} ms, "
           f"max abs err vs spmv_ell_plain {float(err.max())}")
 
-    # -- BFS: the round with the largest frontier ------------------------------
-    adj = _adj_global(inputs["bfs"].g).contiguous()
+    # -- BFS: every round of the main path, on the planes bfs_cuda hands over --
+    g = inputs["bfs"].g
+    planes = g.adj  # (P, V_p, K), read in place
+    n_pad, kk = g.P * g.v_per_nodelet, g.k
     frontiers = []
 
     def record(adj_, frontier):
         frontiers.append(frontier.clone())
         return bfs_expand_plain(adj_, frontier)
 
-    bfs_rounds(adj, 0, adj.shape[0], record)
-    sizes = [int(f.sum()) for f in frontiers]
-    print(f"  bfs frontier sizes by round: {sizes}")
-    frontier = frontiers[int(np.argmax(sizes))]
-    block = MigratoryStrategy().dynamic_grain(adj.shape[0])
-    got = bfs_expand(adj, frontier, block_rows=block)
-    smoke.check(torch.equal(got, bfs_expand_plain(adj, frontier)),
-                "bfs_expand disagrees with its plain version")
-    n_pad, kk = adj.shape
-    rows = frontier.nonzero()  # (n_frontier, 1)
-    nbrs = adj[rows[:, 0]]
+    bfs_rounds(planes, 0, n_pad, record, n_pad)
+    block = MigratoryStrategy().dynamic_grain(n_pad)
+    shape = bfs_expand_occupancy(block)
+    n_sm = torch.cuda.get_device_properties(planes.device).multi_processor_count
+    n_ctas = -(-n_pad // block)
+    warps_per_sm = shape["blocks_per_sm"] * shape["threads_per_block"] // 32
+    print(f"  bfs_expand launch at grain {block}: {n_ctas} CTAs of {shape['threads_per_block']} "
+          f"threads; {shape['blocks_per_sm']} CTAs ({warps_per_sm} warps of 64) resident an SM, "
+          f"{min(n_ctas, shape['blocks_per_sm'] * n_sm)} of the {n_ctas} CTAs at once on {n_sm} SMs")
+    rounds = []
+    for i, frontier in enumerate(frontiers):
+        smoke.check(torch.equal(bfs_expand(planes, frontier, block_rows=block),
+                                bfs_expand_plain(planes, frontier)),
+                    f"bfs_expand disagrees with its plain version in round {i}")
+        n_front = int(frontier.sum())
+        ms = time_ms(lambda f=frontier: bfs_expand(planes, f, block_rows=block), 20)
+        bound_ms, _ = bound(*bfs_expand_work(n_pad, kk, n_front))
+        rounds.append((n_front, ms, bound_ms))
+        print(f"  bfs round {i}: frontier {n_front}, kernel {ms} ms, bound {bound_ms} ms", flush=True)
+    largest = int(np.argmax([r[0] for r in rounds]))
+    frontier = frontiers[largest]
+    rows = global_rows(planes).contiguous()
+    print(f"  bfs largest round on an (N, K) copy of the planes: "
+          f"{time_ms(lambda: bfs_expand(rows, frontier, block_rows=block), 20)} ms")
+    src = frontier.nonzero()  # (n_frontier, 1)
+    nbrs = rows[src[:, 0]]
     valid = nbrs >= 0
-    dst, prop = nbrs[valid].long(), rows.expand(-1, kk)[valid].to(torch.int32)
-    out = torch.empty(n_pad, dtype=torch.int32, device=adj.device)
+    dst, prop = nbrs[valid].long(), src.expand(-1, kk)[valid].to(torch.int32)
+    out = torch.empty(n_pad, dtype=torch.int32, device=planes.device)
 
     def library():  # scatter_reduce_ over the round's valid proposals, precomputed
         out.fill_(UNVISITED)
         out.scatter_reduce_(0, dst, prop, "amin")
 
     entry("bfs_expand", "src/repro_torch/csrc/bfs_expand.cu",
-          "src/repro/kernels/bfs/kernel.py:31", 0.0,
-          time_ms(lambda: bfs_expand(adj, frontier, block_rows=block), 20),
-          time_ms(lambda: bfs_expand_plain(adj, frontier), 10),
-          n_pad * 1 + max(sizes) * kk * 4 + n_pad * 4, 0, time_ms(library, 10))
+          "src/repro/kernels/bfs/kernel.py:31", 0.0, rounds[largest][1],
+          time_ms(lambda: bfs_expand_plain(planes, frontier), 10),
+          *bfs_expand_work(n_pad, kk, rounds[largest][0]), time_ms(library, 10),
+          rounds=len(rounds), rounds_ms=sum(r[1] for r in rounds),
+          rounds_bound_ms=sum(r[2] for r in rounds))
 
     # -- topk_sim: the PAIR planes of the main path ----------------------------
     gi = inputs["gsana"]
@@ -610,6 +633,12 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
           f"{time_ms(lambda: topk_sim(*planes, **kw), 5)} ms, plain version "
           f"{time_ms(lambda: topk_sim_plain(*planes, **kw), 1, warmup=0)} ms, "
           f"bound {bound_ms} ms ({bound_by})", flush=True)
+
+
+def bfs_expand_work(n: int, k: int, n_frontier: int) -> tuple[int, int]:
+    """(bytes, operations) of one expansion round: the frontier mask, the
+    frontier rows' adjacency and the proposals out; no arithmetic to speak of."""
+    return n + n_frontier * k * 4 + n * 4, 0
 
 
 def topk_sim_work(fv, fu, mv, mu, kw) -> tuple[float, float]:

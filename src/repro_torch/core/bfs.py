@@ -28,31 +28,43 @@ UNVISITED = torch.iinfo(torch.int32).max  # internal sentinel (min-merge friendl
 
 def _adj_global(g: PartitionedGraph) -> torch.Tensor:
     """(P, V_p, K) nodelet-major -> (N_pad, K) global-vertex-major view."""
-    p, vp, k = g.adj.shape
-    return g.adj.permute(1, 0, 2).reshape(vp * p, k)
+    return global_rows(g.adj)
+
+
+def global_rows(adj: torch.Tensor) -> torch.Tensor:
+    """(P, V_p, K) nodelet-major planes -> (P*V_p, K) rows in global vertex
+    order (row v is plane v % P, slot v // P); an (N, K) adjacency as it is."""
+    if adj.dim() == 2:
+        return adj
+    p, vp, k = adj.shape
+    return adj.permute(1, 0, 2).reshape(vp * p, k)
 
 
 def _expand_dense(adj: torch.Tensor, frontier: torch.Tensor, n_pad: int) -> torch.Tensor:
     """One frontier expansion: dense proposal array nP (N_pad,) via min-scatter.
 
     For every frontier vertex s and neighbor d: propose parent s for d.
-    Invalid slots scatter UNVISITED (a no-op for min).
+    Invalid slots scatter UNVISITED (a no-op for min); ids outside
+    [0, n_pad) are dropped, as the reference's ``mode="drop"`` does.
     """
     n, k = adj.shape
     src = torch.arange(n, dtype=torch.int32, device=adj.device)[:, None].expand(n, k)
-    valid = (frontier != 0)[:, None] & (adj >= 0)
+    valid = (frontier != 0)[:, None] & (adj >= 0) & (adj < n_pad)
     dst = torch.where(valid, adj, 0).reshape(-1).long()
     prop = torch.where(valid, src, UNVISITED).reshape(-1)
     out = torch.full((n_pad,), UNVISITED, dtype=torch.int32, device=adj.device)
     return out.scatter_reduce_(0, dst, prop, "amin")
 
 
-def bfs_rounds(adj: torch.Tensor, root: int, max_rounds: int, expand) -> torch.Tensor:
-    """Level-synchronous BFS over (N, K) ``adj`` with ``expand(adj,
-    frontier)`` as the round body: the loop, the commit and the empty-frontier
-    test, one host sync per round. Returns (N,) int32 parents, UNVISITED where
-    unreached."""
-    n = adj.shape[0]
+def bfs_rounds(
+    adj: torch.Tensor, root: int, max_rounds: int, expand, n: "int | None" = None
+) -> torch.Tensor:
+    """Level-synchronous BFS over ``adj`` with ``expand(adj, frontier)`` as
+    the round body: the loop, the commit and the empty-frontier test, one
+    host sync per round. ``n`` is the vertex count, ``adj.shape[0]`` unless
+    given (``adj`` may be in any layout ``expand`` reads). Returns (n,) int32
+    parents, UNVISITED where unreached."""
+    n = adj.shape[0] if n is None else n
     parents = torch.full((n,), UNVISITED, dtype=torch.int32, device=adj.device)
     parents[root] = root
     frontier = torch.zeros(n, dtype=torch.bool, device=adj.device)

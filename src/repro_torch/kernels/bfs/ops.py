@@ -6,13 +6,14 @@ loop, with the expansion round swapped for :func:`bfs_expand`; the
 min-merge is integer arithmetic, so the parent tree is bit-identical to
 ``bfs_local`` for every strategy and block size. Both S2 comm strategies
 share the kernel; the strategy's contribution here is the grain axis,
-``block_rows``.
+``block_rows``. The kernel reads the graph's (P, V_p, K) planes in place:
+nothing is copied into global vertex order.
 """
 from __future__ import annotations
 
 import torch
 
-from ...core.bfs import _adj_global, _finalize_parents, bfs_rounds
+from ...core.bfs import _finalize_parents, bfs_rounds
 from ...core.strategies import MigratoryStrategy
 from ...sparse.graph import PartitionedGraph
 from .kernel import bfs_expand
@@ -29,11 +30,10 @@ def bfs_cuda(
     """(n_vertices,) int32 parents, -1 unreached — bit-identical to
     ``bfs_local``. ``block_rows`` (explicit) beats the strategy's grain axis
     beats the dynamic grain over the whole padded graph."""
-    adj = _adj_global(g).contiguous()
-    n = adj.shape[0]
+    n = g.P * g.v_per_nodelet
     max_rounds = max_rounds or n
     if block_rows is None:
         block_rows = (strategy or MigratoryStrategy()).dynamic_grain(n)
     block = max(1, min(int(block_rows), n))
     expand = lambda a, f: bfs_expand(a, f, block_rows=block)  # noqa: E731
-    return _finalize_parents(g, bfs_rounds(adj, root, max_rounds, expand))
+    return _finalize_parents(g, bfs_rounds(g.adj, root, max_rounds, expand, n))

@@ -106,6 +106,68 @@ def test_expand_round_matches_reference_kernels(block_rows):
         np.testing.assert_array_equal(bfs_expand_plain(adj, f).numpy(), want)
 
 
+def frontier_of(kind: str, n: int, seed: int) -> np.ndarray:
+    """A frontier mask: random bool, all in, none in, or int32 with values
+    other than 0 and 1 (nonzero = in)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "random": lambda: rng.random(n) < 0.3,
+        "all": lambda: np.ones(n, bool),
+        "none": lambda: np.zeros(n, bool),
+        "int32": lambda: rng.integers(-2, 3, n).astype(np.int32),
+    }[kind]()
+
+
+@pytest.mark.parametrize("kind", ["random", "all", "none", "int32"])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_expand_round_on_planes_matches_reference_kernels(name, kind):
+    """The round on the graph's own (P, V_p, K) planes, as ``bfs_cuda``
+    hands them to the kernel, against the JAX oracle and Pallas kernel on
+    the (N, K) rows in global vertex order."""
+    ref_in, port_in = problem(name)
+    adj_ref = ref_adj_global(ref_in.g)
+    planes = port_in.g.adj
+    frontier = frontier_of(kind, adj_ref.shape[0], len(kind))
+    want = np.asarray(bfs_expand_reference(adj_ref, frontier.astype(np.int32)))
+    np.testing.assert_array_equal(
+        np.asarray(bfs_expand_pallas(adj_ref, frontier.astype(np.int32), block_rows=64,
+                                     interpret=True)), want)
+    f = torch.as_tensor(frontier)
+    np.testing.assert_array_equal(bfs_expand_plain(planes, f).numpy(), want)
+    np.testing.assert_array_equal(bfs_expand(planes, f, block_rows=33).numpy(), want)
+
+
+@pytest.mark.parametrize("p,vp,k", [(1, 45, 7), (8, 13, 5), (3, 50, 66)])
+def test_expand_round_on_planes_drops_out_of_range(p, vp, k):
+    """Planes holding -1 padding, rows of -1 only and ids >= N (dropped, as
+    the reference's mode="drop" scatter does), at odd K and N not a multiple
+    of 32."""
+    n = p * vp
+    rng = np.random.default_rng(n + k)
+    planes = rng.integers(-1, n + 4, (p, vp, k)).astype(np.int32)
+    planes[:, ::4] = -1
+    rows = np.transpose(planes, (1, 0, 2)).reshape(n, k)
+    frontier = rng.random(n) < 0.5
+    want = np.asarray(bfs_expand_reference(rows, frontier.astype(np.int32)))
+    np.testing.assert_array_equal(
+        np.asarray(bfs_expand_pallas(rows, frontier.astype(np.int32), block_rows=3,
+                                     interpret=True)), want)
+    got = bfs_expand(torch.as_tensor(planes), torch.as_tensor(frontier), block_rows=3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 33, 2048])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bfs_cuda_on_planes_matches_reference_parents(name, block_rows):
+    """``bfs_cuda`` (the planes handed over in place) on the CPU: parents
+    bit-identical to the JAX ``local`` and ``pallas`` substrates'."""
+    _, port_in = problem(name)
+    parents = bfs_cuda(port_in.g, port_in.root, block_rows=block_rows).numpy()
+    for substrate in ("local", "pallas"):
+        p_ref, _ = ref_parents(name, T.Comm.REMOTE_WRITE, substrate)
+        np.testing.assert_array_equal(parents, np.asarray(p_ref))
+
+
 @pytest.mark.parametrize("comm", list(T.Comm))
 @pytest.mark.parametrize("name", list(GRAPHS))
 def test_bfs_traffic_replay_identical(name, comm):

@@ -12,7 +12,7 @@ import torch
 
 import repro_torch.core as T
 import repro_torch.sparse as TS
-from repro_torch.core.bfs import _adj_global, bfs_local
+from repro_torch.core.bfs import _adj_global, bfs_local, global_rows
 from repro_torch.core.gsana import pair_tasks
 from repro_torch.engine import (
     BFSInputs, CudaSubstrate, GSANAInputs, LocalSubstrate, Request, SpMVInputs, run,
@@ -73,6 +73,48 @@ def test_bfs_expand_kernel_bit_identical(cuda, block_rows):
     parents = bfs_cuda(g, 0, block_rows=block_rows)
     assert torch.equal(parents, bfs_local(g, 0))
     assert T.validate_parents(g, 0, parents)
+
+
+# (P, V_p, K): K = 66 as on the main path; odd K (row bases alternately
+# 8- and 4-byte aligned) with N = 999 and 1000, not multiples of 32
+BFS_PLANES = [(8, 512, 66), (3, 333, 5), (1, 1000, 7), (8, 97, 66)]
+
+
+def bfs_case(p, vp, k, kind, seed):
+    """Planes with -1 padding, rows of -1 only and ids >= N (to be dropped),
+    and a frontier: random bool, all in, none in, or int32 with values
+    other than 0 and 1."""
+    n = p * vp
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(-1, n + 4, (p, vp, k)).astype(np.int32)
+    planes[:, ::5] = -1
+    frontier = {
+        "random": lambda: rng.random(n) < 0.3,
+        "all": lambda: np.ones(n, bool),
+        "none": lambda: np.zeros(n, bool),
+        "int32": lambda: rng.integers(-2, 3, n).astype(np.int32),
+    }[kind]()
+    return torch.as_tensor(planes), torch.as_tensor(frontier)
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 33, 2048])
+@pytest.mark.parametrize("kind", ["random", "all", "none", "int32"])
+@pytest.mark.parametrize("p,vp,k", BFS_PLANES)
+def test_bfs_expand_kernel_on_planes_bit_identical(cuda, p, vp, k, kind, block_rows):
+    """The kernel on (P, V_p, K) planes, on the (N, K) rows of the same
+    graph, and on those rows at a base 4 bytes past 8-byte alignment, each
+    equal to the plain version."""
+    planes, frontier = bfs_case(p, vp, k, kind, seed=p * vp * k + block_rows)
+    planes, frontier = planes.to(cuda), frontier.to(cuda)
+    want = bfs_expand_plain(planes, frontier)
+    rows = global_rows(planes).contiguous()
+    shifted = torch.empty(rows.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(rows.shape)
+    shifted.copy_(rows)
+    assert shifted.data_ptr() % 8 == 4
+    before = bfs_expand.launches
+    for adj in (planes, rows, shifted):
+        assert torch.equal(bfs_expand(adj, frontier, block_rows=block_rows), want)
+    assert bfs_expand.launches == before + 3
 
 
 @pytest.mark.parametrize("n", [1024, 8192])
