@@ -18,16 +18,24 @@ result, without them or outside a checkout of the repository. In order:
    just before and read just after, and checks the results (SpMV against
    the CSR reference, BFS parents validated, GSANA against the ``local``
    substrate);
-4. serves the dense LM at the full width of llama3.2-3b (28 layers, bf16,
+4. autotunes on the card (phase "autotune + calibration (cuda)"): ranks
+   SpMV and BFS (probes of the top 3) and GSANA (a probe of the top 1) on
+   the same inputs with the uncalibrated profile, runs ``strategy="auto"``
+   for each (a plan-cache hit, launches counted, results checked as in 3),
+   sweeps the cuda kernels' grains (``CUDA_BLOCK_CANDIDATES``: request
+   seconds and kernel milliseconds), calibrates the card into a temporary
+   machine file, ranks again under it and prints each pick's predicted
+   against measured seconds (``model_error``);
+5. serves the dense LM at the full width of llama3.2-3b (28 layers, bf16,
    random weights from seed 0) through ``lm_serve`` with ``attn_impl="flash"``:
    4 prompts of 2048 tokens, 32 greedy tokens, the flash kernel's launch
    count set to 0 just before and checked to be 28 (one prefill) just after;
    then holds the flash prefill's logits against the reference attention
    branch on the same weights, and 4 teacher-forced decode steps after each;
-5. holds the ``cuda`` substrate against the ``local`` one on small inputs;
-6. profiles one request of each op, one LM prefill and one decode step
+6. holds the ``cuda`` substrate against the ``local`` one on small inputs;
+7. profiles one request of each op, one LM prefill and one decode step
    (device busy time against wall time, kernel count, top kernels);
-7. holds every kernel against its plain PyTorch version at the main path's
+8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
    the share of it reached and the rate (GB/s where bytes bound the
@@ -164,6 +172,7 @@ def main() -> int:
         return finish(smoke)
     launches = smoke.phase("main path through engine.run on the cuda substrate",
                            main_path, smoke, inputs)
+    smoke.phase("autotune + calibration (cuda)", autotune_path, smoke, inputs)
     lm = smoke.phase(f"LM serve ({LM_ARCH}, flash)", lm_serve_path, smoke, dev)
     if lm is not None:
         smoke.phase("LM flash prefill and decode vs the reference attention branch",
@@ -290,6 +299,178 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
     for name, count in launches.items():
         smoke.check(count > 0, f"kernel {name} was never launched on the main path")
     return launches
+
+
+def bfs_frontiers(g) -> list:
+    """The frontier mask of every round of a BFS from vertex 0 on the
+    graph's planes, recorded through the plain expansion round."""
+    from repro_torch.core.bfs import bfs_rounds
+    from repro_torch.kernels.bfs.kernel import bfs_expand_plain
+
+    n_pad = g.P * g.v_per_nodelet
+    frontiers = []
+
+    def record(adj_, frontier):
+        frontiers.append(frontier.clone())
+        return bfs_expand_plain(adj_, frontier)
+
+    bfs_rounds(g.adj, 0, n_pad, record, n_pad)
+    return frontiers
+
+
+def autotune_path(smoke: Smoke, inputs: dict) -> None:
+    """``autotune`` and ``strategy="auto"`` on the card, the grain sweep, and
+    the calibration plane: predicted against measured seconds per op."""
+    import os
+    import tempfile
+
+    from repro_torch.core import MigratoryStrategy, gather_result, validate_parents
+    from repro_torch.core.cost import cost_model_for
+    from repro_torch.engine import (
+        CUDA_BLOCK_CANDIDATES, CudaSubstrate, Request, autotune, rank_strategies, run,
+        strategy_dict,
+    )
+    from repro_torch.kernels.bfs.kernel import bfs_expand
+    from repro_torch.kernels.spmv.kernel import spmv_ell
+    from repro_torch.kernels.topk_sim.kernel import topk_sim
+    from repro_torch.machine import PerformanceModel, calibrate, reset_default_machine_cache
+    from repro_torch.machine.microbench import describe
+    from repro_torch.sparse import spmv_csr_ref
+
+    dev = inputs["spmv"].x.device
+    sub = CudaSubstrate(dev)
+    kernels = {"spmv": spmv_ell, "bfs": bfs_expand, "gsana": topk_sim}
+    probes = {"spmv": 3, "bfs": 3, "gsana": 1}  # gsana: its rank 1 is PAIR, the kernel's scheme
+    want_y = spmv_csr_ref(inputs["csr"], inputs["spmv"].x)
+
+    def check_result(op, result):
+        if op == "spmv":
+            got = gather_result(result, inputs["csr"].n_rows)
+            err = (got - want_y).abs()
+            smoke.check(bool((err <= SPMV_ATOL + SPMV_RTOL * want_y.abs()).all()),
+                        f"auto spmv disagrees with the CSR reference: max abs err {float(err.max())}")
+        elif op == "bfs":
+            smoke.check(validate_parents(inputs["bfs"].g, 0, result), "auto bfs: invalid parent tree")
+        else:
+            cand, score = result
+            n = inputs["gsana"].vs2.n
+            smoke.check(tuple(cand.shape) == (n, 4) and bool(torch.isfinite(score).all()),
+                        "auto gsana: shape or non-finite scores")
+            (want_c, _), _ = run(Request("gsana", inputs["gsana"], MigratoryStrategy(), sub),
+                                 iters=1, warmup=0)
+            smoke.check(torch.equal(cand, want_c), "auto gsana differs from the main path's PAIR run")
+
+    def strategy_of(st) -> str:
+        return "/".join(str(v) for v in st.cache_key())
+
+    old_env = {k: os.environ.get(k) for k in ("REPRO_TORCH_MACHINE_PATH", "REPRO_TORCH_PROBES_PATH")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_machine_") as tmp:
+        try:
+            # the uncalibrated profile first: no machine file anywhere
+            os.environ["REPRO_TORCH_MACHINE_PATH"] = os.path.join(tmp, "absent.json")
+            os.environ["REPRO_TORCH_PROBES_PATH"] = os.path.join(tmp, "probes.json")
+            reset_default_machine_cache()
+            for op in ("spmv", "bfs", "gsana"):
+                t0 = time.perf_counter()
+                cost_model_for(op, inputs[op])
+                model_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                tuned = autotune(op, inputs[op], sub, probe_top_k=probes[op])
+                rows = tuned.table()
+                print(f"  autotune {op}: {len(rows)} candidates ranked by {tuned.ranked_by}, "
+                      f"cost model {model_s:.2f} s (host, numpy), autotune with probes "
+                      f"{time.perf_counter() - t0:.2f} s; best {strategy_of(tuned.best)}", flush=True)
+                for row, cand in zip(rows, tuned.candidates):
+                    if row["rank"] <= 6 or cand.probe is not None:
+                        probe = f"{cand.probe.seconds * 1e3:.4f} ms" if cand.probe else "-"
+                        print(f"    rank {row['rank']}: {strategy_of(cand.estimate.strategy)} "
+                              f"traffic_bytes {row['traffic_bytes']} balance_penalty "
+                              f"{row['balance_penalty']} probe {probe}", flush=True)
+                smoke.check(rows[0]["probe_seconds"] > 0, f"autotune {op}: rank 1 was not probed")
+                (result, report), n_launch = counted(
+                    kernels[op], lambda op=op: run(Request(op, inputs[op], "auto", sub)))
+                print(f"  auto {op}: {strategy_of(tuned.candidates[0].estimate.strategy)}, "
+                      f"seconds {report.seconds * 1e3:.4f} ms, cache_hit {report.cache_hit}, "
+                      f"{kernels[op].__name__} launches {n_launch}", flush=True)
+                smoke.check(report.cache_hit, f"auto {op}: not a plan-cache hit after the probes")
+                smoke.check(n_launch > 0, f"auto {op}: {kernels[op].__name__} never launched")
+                smoke.check(report.strategy == strategy_dict(tuned.candidates[0].estimate.strategy),
+                            f"auto {op} ran another strategy than rank 1")
+                check_result(op, result)
+
+            grain_sweep(smoke, inputs, sub, CUDA_BLOCK_CANDIDATES)
+
+            t0 = time.perf_counter()
+            profile = calibrate(device=dev)
+            path = profile.save(os.path.join(tmp, "machine.json"))
+            print(f"  calibrate(device={str(dev)!r}) in {time.perf_counter() - t0:.1f} s: "
+                  f"{describe(profile)}", flush=True)
+            print(f"  fingerprint {json.dumps(profile.fingerprint)}", flush=True)
+            local = profile.substrate("cuda")
+            rates = [local.stream_bw, local.gather_bw, local.scatter_bw, local.dispatch_overhead,
+                     profile.peaks.flops]
+            smoke.check(all(np.isfinite(v) and v > 0 for v in rates), f"calibrate: rates {rates}")
+            smoke.check(profile.fingerprint["backend"] == "cuda" and torch.cuda.get_device_name(0)
+                        in profile.fingerprint["device_kinds"], "calibrate: fingerprint misses the card")
+
+            os.environ["REPRO_TORCH_MACHINE_PATH"] = str(path)
+            reset_default_machine_cache()
+            model = PerformanceModel(profile)
+            for op in ("spmv", "bfs", "gsana"):
+                ranked = rank_strategies(op, inputs[op], substrate=sub, machine=profile)
+                top = ", ".join(f"{strategy_of(e.strategy)} {e.predicted_seconds * 1e3:.4f} ms"
+                                for e in ranked[:3])
+                print(f"  calibrated ranking {op}: {top}", flush=True)
+                _, report = run(Request(op, inputs[op], "auto", sub))
+                smoke.check(report.predicted_seconds is not None, f"calibrated auto {op}: no prediction")
+                parts = model.predict_parts(ranked[0], "cuda", bytes_moved=report.bytes_moved)
+                print("  model " + json.dumps({
+                    "op": op, "strategy": strategy_of(ranked[0].strategy),
+                    "predicted_ms": report.predicted_seconds * 1e3, "seconds_ms": report.seconds * 1e3,
+                    "model_error": report.model_error,
+                    "parts_ms": {k: v * 1e3 for k, v in parts.items()}}), flush=True)
+                smoke.check(report.strategy == strategy_dict(ranked[0].strategy),
+                            f"calibrated auto {op} ran another strategy than rank 1")
+        finally:
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            reset_default_machine_cache()
+
+
+def grain_sweep(smoke: Smoke, inputs: dict, sub, grains) -> None:
+    """The main path's strategy at every grain of the cuda candidate set:
+    the request's seconds and the kernel's own time at that grain (SpMV one
+    launch, BFS the sum over the rounds of the main path's BFS)."""
+    from repro_torch.core import MigratoryStrategy, validate_parents
+    from repro_torch.engine import Request, run
+    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy
+    from repro_torch.kernels.spmv.kernel import spmv_ell
+
+    a = inputs["spmv"].a
+    p, rp, k = a.cols.shape
+    cols, vals, x = a.cols.reshape(p * rp, k), a.vals.reshape(p * rp, k), inputs["spmv"].x
+    g = inputs["bfs"].g
+    n_pad = g.P * g.v_per_nodelet
+    frontiers = bfs_frontiers(g)
+    for grain in grains:
+        st = MigratoryStrategy(grain=grain)
+        block = max(1, min(st.dynamic_grain(rp), p * rp))
+        _, report = run(Request("spmv", inputs["spmv"], st, sub))
+        ms = time_ms(lambda: spmv_ell(cols, vals, x, block_rows=block), 50)
+        print(f"  sweep spmv grain {grain} (block {block}, {-(-p * rp // block)} CTAs): seconds "
+              f"{report.seconds * 1e3:.4f} ms, spmv_ell {ms:.4f} ms", flush=True)
+        block = max(1, min(st.dynamic_grain(n_pad), n_pad))
+        parents, report = run(Request("bfs", inputs["bfs"], st, sub))
+        smoke.check(validate_parents(g, 0, parents), f"sweep bfs grain {grain}: invalid tree")
+        rounds = [time_ms(lambda f=f: bfs_expand(g.adj, f, block_rows=block), 20) for f in frontiers]
+        shape = bfs_expand_occupancy(block)
+        print(f"  sweep bfs grain {grain} (block {block}, {-(-n_pad // block)} CTAs of "
+              f"{shape['threads_per_block']} threads, {shape['blocks_per_sm']} an SM): seconds "
+              f"{report.seconds * 1e3:.4f} ms, bfs_expand {sum(rounds):.4f} ms over "
+              f"{len(rounds)} rounds (largest {max(rounds):.4f} ms)", flush=True)
 
 
 def lm_serve_path(smoke: Smoke, dev) -> dict:
@@ -496,7 +677,7 @@ def kernel_row(smoke: Smoke, launches: dict, name, source, replaces, err, ms, pl
 
 def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     from repro_torch.core import MigratoryStrategy, UNVISITED, bucketize, pick_grid
-    from repro_torch.core.bfs import bfs_rounds, global_rows
+    from repro_torch.core.bfs import global_rows
     from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
     from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy, bfs_expand_plain
     from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
@@ -547,13 +728,7 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     g = inputs["bfs"].g
     planes = g.adj  # (P, V_p, K), read in place
     n_pad, kk = g.P * g.v_per_nodelet, g.k
-    frontiers = []
-
-    def record(adj_, frontier):
-        frontiers.append(frontier.clone())
-        return bfs_expand_plain(adj_, frontier)
-
-    bfs_rounds(planes, 0, n_pad, record, n_pad)
+    frontiers = bfs_frontiers(g)
     block = MigratoryStrategy().dynamic_grain(n_pad)
     shape = bfs_expand_occupancy(block)
     n_sm = torch.cuda.get_device_properties(planes.device).multi_processor_count

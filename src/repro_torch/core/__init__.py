@@ -9,6 +9,7 @@ from .bfs import (
     teps,
     validate_parents,
 )
+from .cost import CostEstimate, cost_model_for, register_cost_model
 from .gsana import (
     DEFAULT_VOCAB,
     Placement,
@@ -48,5 +49,6 @@ from .strategies import (
     MigratoryStrategy,
     Scheme,
     TrafficStats,
+    strategy_grid,
 )
 from .util import ceil_div, round_up

@@ -57,6 +57,22 @@ class MigratoryStrategy:
                 self.scheme.value, self.grain)
 
 
+
+def strategy_grid(
+    comms: tuple[Comm, ...] = (Comm.MIGRATE, Comm.REMOTE_WRITE),
+    replicates: tuple[bool, ...] = (True, False),
+    layouts: tuple[Layout, ...] = (Layout.BLK, Layout.HCB),
+    schemes: tuple[Scheme, ...] = (Scheme.ALL, Scheme.PAIR),
+    grains: tuple[int | None, ...] = (None,),
+) -> list[MigratoryStrategy]:
+    """The full S1 x S2 x S3 x grain candidate cross product, in a
+    deterministic order (the autotuner's search space)."""
+    return [
+        MigratoryStrategy(comm=c, replicate_x=r, layout=l, scheme=s, grain=g)
+        for c in comms for r in replicates for l in layouts for s in schemes
+        for g in grains
+    ]
+
 # -- traffic model ------------------------------------------------------------
 # The Emu cost model used to report the paper's metrics on non-Emu hardware:
 # a migration moves a thread context (<200 B, §2); a remote write is a small

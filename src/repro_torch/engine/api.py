@@ -133,8 +133,10 @@ class RunReport:
     call of a new executor, kernel builds included).
 
     ``predicted_seconds``/``model_error`` are the calibration plane's
-    columns; the port has no performance model yet, so both stay None and
-    are absent from ``to_dict``."""
+    model-honesty columns: the perf model's prediction for this plan and
+    its ratio to the measured seconds (predicted / measured, 1.0 =
+    perfect). Both stay None — and absent from ``to_dict`` — unless a
+    calibrated machine file is present."""
 
     op: str
     strategy: dict[str, Any]
@@ -197,6 +199,7 @@ class RunReport:
         metrics: dict[str, Any] | None = None,
         cache_hit: bool = False,
         compile_seconds: float = 0.0,
+        predicted_seconds: "float | None" = None,
     ) -> "RunReport":
         return cls(
             op=op,
@@ -209,4 +212,9 @@ class RunReport:
             cache_hit=cache_hit,
             compile_seconds=compile_seconds,
             metrics=metrics or {},
+            predicted_seconds=predicted_seconds,
+            model_error=(
+                None if predicted_seconds is None
+                else predicted_seconds / max(seconds, 1e-12)
+            ),
         )

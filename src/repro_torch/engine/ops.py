@@ -19,14 +19,43 @@ import numpy as np
 import torch
 
 from ..core.bfs import bfs_bytes_moved, bfs_traffic, teps
+from ..core.cost import bfs_cost_model, gsana_cost_model, spmv_cost_model
 from ..core.gsana import gsana_rw_bytes, layout_blk, layout_hcb, plan_stats, recall_at_k
 from ..core.gsana_data import Buckets, VertexSet
 from ..core.spmv import PartitionedELL, spmv_bytes_moved, spmv_traffic, stripe_vector
-from ..core.strategies import Layout, MigratoryStrategy, TrafficStats
+from ..core.strategies import Layout, MigratoryStrategy, TrafficStats, strategy_grid
 from ..sparse.graph import PartitionedGraph
 from .api import ExecutionPlan, plan_key
 from .registry import OpSpec, register_op
 from .substrate import Substrate
+
+# grain values worth distinguishing for row-grained ops (None = dynamic);
+# SpMV's autotune grid sweeps them, the other ops' grids pin grain=None
+GRAIN_CANDIDATES = (None, 16, 64, 256)
+
+# the cuda kernels' tuning axis: grain = rows one CTA owns. Taken from the
+# kernels' launch shapes: csrc/spmv_ell.cu gives a CTA min(256, roundup32(
+# grain)) threads, so 256 is the least grain that fills a CTA; a bfs_expand
+# CTA fills its 16 warps at 512 rows; the main path's dynamic grains (None)
+# are 1024 for SpMV and 2048 for BFS; 4096 halves the CTAs once more. The
+# grain sweep of chip_smoke.py on an H100 (PERF.md) keeps all six: the two
+# kernels' fastest grains lie at opposite ends of the set (spmv_ell at 4096,
+# bfs_expand at 256-512, where 8 CTAs of 256 rows fit an SM).
+CUDA_BLOCK_CANDIDATES = (None, 256, 512, 1024, 2048, 4096)
+
+
+def _spmv_grid(substrate_kind: "str | None" = None) -> list[MigratoryStrategy]:
+    grains = CUDA_BLOCK_CANDIDATES if substrate_kind == "cuda" else GRAIN_CANDIDATES
+    return strategy_grid(grains=grains)
+
+
+def _bfs_grid(substrate_kind: "str | None" = None) -> list[MigratoryStrategy]:
+    # the default grid pins grain=None (the local kernel never reads it); on
+    # cuda the grain is the rows a CTA of the frontier-expansion kernel owns
+    if substrate_kind == "cuda":
+        return strategy_grid(grains=CUDA_BLOCK_CANDIDATES)
+    return strategy_grid()
+
 
 # Cross-plan memo for host-side derived stats (traffic replays, placement
 # models, nnz scans): every run builds a fresh plan, so ``plan.meta`` alone
@@ -83,8 +112,9 @@ class SpMVOp:
 
     def traffic(self, plan: ExecutionPlan) -> TrafficStats:
         inputs, strategy = plan.inputs, plan.strategy
+        # the count reads only S1, so one memo entry serves every grain
         return _derived_cached(
-            "spmv_traffic", inputs, strategy.cache_key(),
+            "spmv_traffic", inputs, strategy.replicate_x,
             lambda: spmv_traffic(inputs.a, strategy),
         )
 
@@ -135,11 +165,12 @@ class BFSOp:
 
     def _stats(self, plan: ExecutionPlan):
         """The numpy traffic replay: O(edges), computed once per
-        (inputs, root, strategy) and shared across every plan built for them."""
+        (inputs, root, comm) — the only strategy axis it reads — and shared
+        across every plan built for them."""
         if "run_stats" not in plan.meta:
             inputs, strategy = plan.inputs, plan.strategy
             plan.meta["run_stats"] = _derived_cached(
-                "bfs_replay", inputs, (inputs.root, strategy.cache_key()),
+                "bfs_replay", inputs, (inputs.root, strategy.comm),
                 lambda: bfs_traffic(inputs.g, inputs.root, strategy),
             )
         return plan.meta["run_stats"]
@@ -245,6 +276,13 @@ class GSANAOp:
 
 # -- registration --------------------------------------------------------------
 
-register_op(OpSpec(name="spmv", factory=SpMVOp, inputs_type=SpMVInputs))
-register_op(OpSpec(name="bfs", factory=BFSOp, inputs_type=BFSInputs))
-register_op(OpSpec(name="gsana", factory=GSANAOp, inputs_type=GSANAInputs))
+register_op(OpSpec(
+    name="spmv", factory=SpMVOp, inputs_type=SpMVInputs, cost_model=spmv_cost_model,
+    grid=_spmv_grid,
+))
+register_op(OpSpec(
+    name="bfs", factory=BFSOp, inputs_type=BFSInputs, cost_model=bfs_cost_model, grid=_bfs_grid,
+))
+register_op(OpSpec(
+    name="gsana", factory=GSANAOp, inputs_type=GSANAInputs, cost_model=gsana_cost_model,
+))

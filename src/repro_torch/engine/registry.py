@@ -31,9 +31,14 @@ class OpSpec:
     """Everything the engine needs to serve one op, minus the kernels.
 
     ``factory`` builds the :class:`~repro_torch.engine.api.MigratoryOp`
-    adapter; ``inputs_type`` is the op's input dataclass. ``cost_model`` and
-    ``grid`` are the autotuner's hooks; the port has no autotuner yet, so
-    they stay None and registering one is refused.
+    adapter; ``inputs_type`` is the op's input dataclass. ``cost_model`` is
+    the op's analytic cost-model factory (``inputs -> strategy ->
+    CostEstimate``); registering the spec installs it in
+    :mod:`repro_torch.core.cost`, so ``cost_model_for(name, inputs)`` serves
+    every registered op from one lookup. ``grid`` yields the op's autotune
+    candidate strategies (None: the default S1 x S2 x S3 cross product); a
+    grid callable that accepts an argument receives the target substrate's
+    kind and may widen a kernel-tuning axis for it.
     """
 
     name: str
@@ -53,12 +58,14 @@ class KernelRegistry:
         self._kernels: dict[tuple[str, str], Kernel] = {}
 
     def register_op(self, spec: OpSpec, *, replace: bool = False) -> OpSpec:
-        if spec.cost_model is not None or spec.grid is not None:
-            raise NotImplementedError("the port has no autotuner: OpSpec.cost_model and grid must be None")
         with self._lock:
             if spec.name in self._specs and not replace:
                 raise ValueError(f"op {spec.name!r} already registered")
             self._specs[spec.name] = spec
+        if spec.cost_model is not None:
+            from ..core.cost import register_cost_model
+
+            register_cost_model(spec.name, spec.cost_model)
         return spec
 
     def op_spec(self, name: str) -> OpSpec:

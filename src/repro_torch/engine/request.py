@@ -3,9 +3,10 @@
     y, report = engine.run(Request("spmv", SpMVInputs(a, x), strategy, "cuda"))
 
 ``op`` is an op name or a :class:`~repro_torch.engine.api.MigratoryOp`;
-``strategy`` a :class:`~repro_torch.core.strategies.MigratoryStrategy` or
-None (the paper defaults); ``substrate`` a substrate instance or registered
-name, None meaning ``"local"``.
+``strategy`` a :class:`~repro_torch.core.strategies.MigratoryStrategy`,
+``"auto"`` (the autotuner's pick) or None (the paper defaults);
+``substrate`` a substrate instance or registered name, None meaning
+``"local"``.
 """
 from __future__ import annotations
 
@@ -21,5 +22,5 @@ class Request:
 
     op: Any
     inputs: Any
-    strategy: "MigratoryStrategy | None" = None
+    strategy: "MigratoryStrategy | str | None" = None
     substrate: Any = None  # Substrate | str | None (None = "local")

@@ -4,7 +4,8 @@
 
 The stages are individually exposed:
 
-- :func:`build_plan`   — bind op + inputs + strategy to a substrate executor.
+- :func:`build_plan`   — bind op + inputs + strategy to a substrate executor
+  (``strategy="auto"`` routes through the autotuner).
 - :func:`compile_plan` — resolve the executor through a
   :class:`~repro_torch.engine.cache.PlanCache`; a hit reuses it.
 - :func:`execute` / :func:`run` — timed execution. Defaults
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 
 from ..core.strategies import MigratoryStrategy
+from ..machine.perfmodel import maybe_predict_plan_seconds
 from . import ops as _ops  # noqa: F401  (imports register the built-in OpSpecs)
 from .api import ExecutionPlan, MigratoryOp, RunReport
 from .cache import CompiledPlan, PlanCache, default_cache
@@ -39,24 +41,37 @@ def resolve_op(op: "MigratoryOp | str") -> MigratoryOp:
     return op
 
 
-def resolve_strategy(strategy: "MigratoryStrategy | None") -> MigratoryStrategy:
-    """None -> the paper defaults. The port has no autotuner, so
-    ``"auto"`` is refused."""
+def resolve_strategy(
+    op: MigratoryOp,
+    inputs: Any,
+    strategy: "MigratoryStrategy | str | None",
+    substrate: Substrate,
+) -> MigratoryStrategy:
+    """None -> paper defaults; ``"auto"`` -> autotuner pick (ranked in
+    predicted seconds for ``substrate`` when a calibrated machine file is
+    present, in traffic units otherwise)."""
     if strategy is None:
         return MigratoryStrategy()
+    if isinstance(strategy, str):
+        if strategy != "auto":
+            raise ValueError(f"unknown strategy {strategy!r}; expected 'auto'")
+        from .autotune import choose_strategy
+
+        return choose_strategy(op, inputs, substrate)
     if not isinstance(strategy, MigratoryStrategy):
-        raise ValueError(f"strategy must be a MigratoryStrategy or None, got {strategy!r}")
+        raise ValueError(f"strategy must be a MigratoryStrategy, 'auto' or None, got {strategy!r}")
     return strategy
 
 
 def build_plan(
     op: "MigratoryOp | str",
     inputs: Any,
-    strategy: "MigratoryStrategy | None" = None,
+    strategy: "MigratoryStrategy | str | None" = None,
     substrate: "Substrate | str" = "local",
 ) -> ExecutionPlan:
     """Stage 1: plan. Resolve op/strategy/substrate and bind the inputs."""
-    return resolve_op(op).plan(inputs, resolve_strategy(strategy), get_substrate(substrate))
+    op, sub = resolve_op(op), get_substrate(substrate)
+    return op.plan(inputs, resolve_strategy(op, inputs, strategy, sub), sub)
 
 
 def compile_plan(plan: ExecutionPlan, cache: PlanCache | None = None) -> CompiledPlan:
@@ -139,6 +154,8 @@ def run_plan(
         metrics=op.metrics(plan, result, seconds),
         cache_hit=compiled.cache_hit,
         compile_seconds=compile_seconds,
+        # None (and absent from to_dict) unless a calibrated machine file exists
+        predicted_seconds=maybe_predict_plan_seconds(op, plan),
     )
     return result, report
 
@@ -160,8 +177,8 @@ def run(
     if not isinstance(request, Request):
         raise TypeError(f"run takes a Request, got {type(request).__name__}")
     op = resolve_op(request.op)
-    sub = get_substrate(request.substrate if request.substrate is not None else "local")
-    plan = op.plan(request.inputs, resolve_strategy(request.strategy), sub)
+    substrate = request.substrate if request.substrate is not None else "local"
+    plan = build_plan(op, request.inputs, request.strategy, substrate)
     return run_plan(plan, op, iters=iters, warmup=warmup, cache=cache)
 
 

@@ -8,16 +8,29 @@ import torch
 import repro.core as R
 import repro.sparse as RS
 import repro_torch.core as T
+import repro_torch.core.cost as cost
 import repro_torch.sparse as TS
 from repro.engine import Request as JRequest, SpMVInputs as JSpMVInputs, run as jrun
 from repro_torch.engine import (
-    CudaSubstrate, ExecutionPlan, LocalSubstrate, OpNotSupportedError, OpSpec, PlanCache,
-    Request, SpMVInputs, SpMVOp, args_signature, build_plan, capabilities, compile_plan,
+    CudaSubstrate, ExecutionPlan, KernelRegistry, LocalSubstrate, OpNotSupportedError, OpSpec,
+    PlanCache, Request, SpMVInputs, SpMVOp, args_signature, build_plan, capabilities, compile_plan,
     default_registry, execute, get_substrate, list_substrates, plan_key, register_op, run,
 )
 from repro_torch.kernels.runtime import on_card
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True)
+def _no_machine_file(tmp_path, monkeypatch):
+    """No calibrated machine file: report rows keep the uncalibrated schema
+    whatever file this host holds."""
+    from repro_torch.machine import reset_default_machine_cache
+
+    monkeypatch.setenv("REPRO_TORCH_MACHINE_PATH", str(tmp_path / "absent.json"))
+    reset_default_machine_cache()
+    yield
+    reset_default_machine_cache()
 
 
 @pytest.fixture(scope="module")
@@ -94,15 +107,15 @@ def test_run_takes_only_a_request(spmv_pair):
         run("spmv", port_in)  # type: ignore[call-arg]
     with pytest.raises(TypeError, match="takes a Request"):
         run(SpMVOp())  # type: ignore[arg-type]
-    with pytest.raises(ValueError, match="MigratoryStrategy"):
-        run(Request("spmv", port_in, "auto", LocalSubstrate(CPU)))
+    with pytest.raises(ValueError, match="unknown strategy 'fastest'"):
+        run(Request("spmv", port_in, "fastest", LocalSubstrate(CPU)))
     with pytest.raises(ValueError, match="unknown op"):
         run(Request("nope", port_in, None, LocalSubstrate(CPU)))
     with pytest.raises(ValueError, match="unknown substrate"):
         get_substrate("pallas")
 
 
-def test_registry_and_capabilities():
+def test_registry_and_capabilities(monkeypatch):
     assert list_substrates() == ["cuda", "local"]
     table = capabilities()
     assert table == {op: {"cuda": True, "local": True} for op in ("bfs", "gsana", "spmv")}
@@ -110,8 +123,12 @@ def test_registry_and_capabilities():
         default_registry().resolve_kernel("moe_dispatch", "cuda")
     with pytest.raises(ValueError, match="already registered"):
         register_op(OpSpec(name="spmv", factory=SpMVOp))
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        register_op(OpSpec(name="spmv2", factory=SpMVOp, cost_model=lambda i: None))
+    # a spec's cost model reaches cost_model_for (a private registry and
+    # table, so the process-wide ones keep only the built-in ops)
+    monkeypatch.setattr(cost, "COST_MODELS", dict(cost.COST_MODELS))
+    KernelRegistry().register_op(
+        OpSpec(name="spmv2", factory=SpMVOp, cost_model=lambda i: ("model", i)))
+    assert cost.cost_model_for("spmv2", 7) == ("model", 7)
     assert CudaSubstrate(CPU).supports("gsana") and not CudaSubstrate(CPU).supports("moe")
 
 

@@ -213,6 +213,60 @@ def test_engine_cuda_matches_local_on_the_card(cuda):
     assert rep.metrics["recall_at_k"] > 0.9
 
 
+@pytest.fixture
+def no_machine_file(tmp_path, monkeypatch):
+    """The uncalibrated profile and an empty probe store, whatever this host holds."""
+    from repro_torch.engine import probes
+    from repro_torch.machine import reset_default_machine_cache
+
+    monkeypatch.setenv("REPRO_TORCH_MACHINE_PATH", str(tmp_path / "absent_machine.json"))
+    monkeypatch.setenv("REPRO_TORCH_PROBES_PATH", str(tmp_path / "absent_probes.json"))
+    monkeypatch.setattr(probes, "_default_store", None)
+    reset_default_machine_cache()
+    yield
+    reset_default_machine_cache()
+
+
+def test_autotune_and_auto_on_the_card(cuda, no_machine_file):
+    """``autotune`` with probes and ``strategy="auto"`` on the cuda
+    substrate: the pick's plan is a cache hit after the probes, its kernel
+    launches, and its result equals the local substrate's."""
+    from repro_torch.engine import PlanCache, autotune
+
+    a = TS.laplacian_2d(64, device=cuda)
+    x = torch.randn(a.n_cols, generator=torch.Generator().manual_seed(3)).to(cuda)
+    g = TS.partition_graph(TS.edges_to_csr(TS.rmat_edges(12, 8, seed=1), 1 << 12, device=cuda),
+                           8, device=cuda)
+    cases = {"spmv": (SpMVInputs(T.partition_ell(a, 8, device=cuda), x), spmv_ell),
+             "bfs": (BFSInputs(g, 0), bfs_expand)}
+    card, local = CudaSubstrate(cuda), LocalSubstrate(cuda)
+    for op, (inputs, kernel) in cases.items():
+        cache = PlanCache()
+        tuned = autotune(op, inputs, card, probe_top_k=2, cache=cache)
+        assert sum(c.probe is not None for c in tuned.candidates) == 2
+        before = kernel.launches
+        got, rep = run(Request(op, inputs, "auto", card), cache=cache)
+        assert rep.cache_hit and kernel.launches > before
+        want, _ = run(Request(op, inputs, "auto", local), cache=cache)
+        if op == "spmv":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got, want)
+
+
+def test_calibrate_the_card(cuda, tmp_path):
+    from repro_torch.machine import calibrate, load_machine
+
+    profile = calibrate(device=cuda, quick=True)
+    sub = profile.substrate("cuda")
+    rates = [sub.stream_bw, sub.gather_bw, sub.scatter_bw, sub.dispatch_overhead,
+             profile.peaks.flops, profile.host_parallel_capacity]
+    assert all(np.isfinite(v) and v > 0 for v in rates)
+    assert profile.fingerprint["backend"] == "cuda"
+    assert torch.cuda.get_device_name(cuda) in profile.fingerprint["device_kinds"]
+    assert load_machine(profile.save(tmp_path / "machine.json")) == profile
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     cols = torch.zeros((4, 2), dtype=torch.int64, device=cuda)  # the kernel takes int32
     vals = torch.zeros((4, 2), device=cuda)

@@ -147,7 +147,47 @@ def test_constructors_default_to_the_card(monkeypatch):
         lambda: T.generate_alignment_pair(32, seed=0),
         lambda: T.bucketize(vs1, 2),
         lambda: from_numpy(TS.CSR, numpy_fields(a)),
+        lambda: TS.ell_from_csr(a),
+        lambda: TS.split_long_rows(a, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# (a name, both packages' builder of one matrix): a stencil, skewed rows, and
+# a scale-free graph with empty rows (isolated vertices)
+ELL_MATRICES = {
+    "lap16": lambda mod, **kw: mod.laplacian_2d(16, **kw),
+    "skewed": lambda mod, **kw: mod.skewed_matrix(600, 4.0, 64, seed=5, **kw),
+    "rmat": lambda mod, **kw: mod.edges_to_csr(mod.rmat_edges(8, 4, seed=2), 256, **kw),
+}
+
+
+@pytest.mark.parametrize("k,pad", [(None, 1), (None, 16), ("max+3", 7)])
+@pytest.mark.parametrize("name", list(ELL_MATRICES))
+def test_ell_from_csr_identical(name, k, pad):
+    a_ref, a = ELL_MATRICES[name](RS), ELL_MATRICES[name](TS, device=CPU)
+    if k == "max+3":
+        k = int(np.diff(np.asarray(a_ref.indptr)).max()) + 3
+    ref = RS.ell_from_csr(a_ref, k=k, row_pad_to=pad)
+    port = TS.ell_from_csr(a, k=k, row_pad_to=pad, device=CPU)
+    assert_same(ref, port)
+    assert (port.n_rows, port.k, port.nnz_padded) == (ref.n_rows, ref.k, ref.nnz_padded)
+    x = np.random.default_rng(0).standard_normal(a.n_cols).astype(np.float32)
+    # float32 row sums in another order: the reference's pallas-vs-local tolerance
+    np.testing.assert_allclose(TS.spmv_ell_ref(port, torch.as_tensor(x)).numpy(),
+                               np.asarray(RS.spmv_ell_ref(ref, x)), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="split rows first"):
+        TS.ell_from_csr(a, k=int(np.diff(np.asarray(a_ref.indptr)).max()) - 1, device=CPU)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 1000])
+@pytest.mark.parametrize("name", list(ELL_MATRICES))
+def test_split_long_rows_identical(name, k):
+    a_ref, a = ELL_MATRICES[name](RS), ELL_MATRICES[name](TS, device=CPU)
+    ref, ref_owner = RS.split_long_rows(a_ref, k)
+    port, owner = TS.split_long_rows(a, k, device=CPU)
+    assert_same(ref, port)
+    assert owner.dtype == ref_owner.dtype
+    np.testing.assert_array_equal(owner, ref_owner)

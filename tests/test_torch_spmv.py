@@ -18,7 +18,6 @@ import repro_torch.sparse as TS
 from repro.engine import Request as JRequest, SpMVInputs as JSpMVInputs, run as jrun
 from repro.kernels.spmv.ops import spmv as jspmv
 from repro.kernels.spmv.stripe import build_stripe_plan as jbuild_stripe_plan
-from repro.sparse import ell_from_csr
 from repro_torch.engine import CudaSubstrate, LocalSubstrate, Request, SpMVInputs, run
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv.ops import STRIPE_WASTE_THRESHOLD, spmv
@@ -77,11 +76,10 @@ def test_spmv_engine_parity(name, replicate_x, grain):
 
 @pytest.mark.parametrize("block_rows", [1, 7, 16, 64, 256, 10_000])
 def test_ell_kernel_plain_matches_reference_kernel(block_rows):
-    a_ref = RS.skewed_matrix(300, 4.0, 20, seed=3)
-    e = ell_from_csr(a_ref)
+    e = TS.ell_from_csr(TS.skewed_matrix(300, 4.0, 20, seed=3, device=CPU), device=CPU)
     x = np.random.default_rng(1).standard_normal(300).astype(np.float32)
-    want = np.asarray(jspmv(e.cols, e.vals, x, grain=block_rows, interpret=True))
-    cols, vals = tensor(e.cols), tensor(e.vals)
+    want = np.asarray(jspmv(e.cols.numpy(), e.vals.numpy(), x, grain=block_rows, interpret=True))
+    cols, vals = e.cols, e.vals
     got = spmv_ell(cols, vals, torch.as_tensor(x), block_rows=block_rows)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     np.testing.assert_array_equal(got.numpy(), spmv_ell_plain(cols, vals, torch.as_tensor(x)).numpy())
@@ -90,9 +88,9 @@ def test_ell_kernel_plain_matches_reference_kernel(block_rows):
 @pytest.mark.parametrize("block_rows", [32, 64, 200])
 def test_stripe_plan_and_product_match_reference(block_rows):
     a_ref = RS.skewed_matrix(512, 4.0, 128, seed=9)
-    e = ell_from_csr(a_ref)
-    cols, vals = tensor(e.cols), tensor(e.vals)
-    ref_plan = jbuild_stripe_plan(e.cols, block_rows)
+    e = TS.ell_from_csr(TS.skewed_matrix(512, 4.0, 128, seed=9, device=CPU), device=CPU)
+    cols, vals = e.cols, e.vals
+    ref_plan = jbuild_stripe_plan(cols.numpy(), block_rows)
     plan = build_stripe_plan(cols, block_rows)
     assert (plan.block_rows, plan.n_rows, plan.k_full) == (
         ref_plan.block_rows, ref_plan.n_rows, ref_plan.k_full)
@@ -110,12 +108,11 @@ def test_stripe_plan_and_product_match_reference(block_rows):
 
 @pytest.mark.parametrize("variant", ["ell", "stripe", "auto"])
 def test_spmv_variants_match_reference_dispatcher(variant):
-    a_ref = RS.skewed_matrix(512, 4.0, 128, seed=9)
-    e = ell_from_csr(a_ref)
+    e = TS.ell_from_csr(TS.skewed_matrix(512, 4.0, 128, seed=9, device=CPU), device=CPU)
     x = np.random.default_rng(2).standard_normal(512).astype(np.float32)
-    want = np.asarray(jspmv(e.cols, e.vals, x, grain=64, variant=variant, interpret=True))
-    got = spmv(tensor(e.cols), tensor(e.vals),
-               torch.as_tensor(x), grain=64, variant=variant)
+    want = np.asarray(jspmv(e.cols.numpy(), e.vals.numpy(), x, grain=64, variant=variant,
+                            interpret=True))
+    got = spmv(e.cols, e.vals, torch.as_tensor(x), grain=64, variant=variant)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
