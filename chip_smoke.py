@@ -17,7 +17,15 @@ result, without them or outside a checkout of the repository. In order:
    the HCB and BLK layouts, each with the kernels' launch counts set to 0
    just before and read just after, and checks the results (SpMV against
    the CSR reference, BFS parents validated, GSANA against the ``local``
-   substrate);
+   substrate); then two more paths, counted the same way: the CSR-stripe
+   SpMV through ``spmv(variant="stripe")`` (one launch a call; ``"auto"``
+   too) on the Laplacian's planes and on ``skewed_matrix(2^20, 8, 512)``,
+   each held against the ELL product and timed beside spmv_ell and
+   torch.mv; and GSANA at a coarse grid (``pick_grid(n, 512)``: 16x16,
+   buckets of about 570 vertices, topk_sim's wide instance) through
+   ``engine.run`` on ``cuda``, held equal to ``local``, with the kernel
+   timed there and its registers and spills printed (``cuobjdump
+   -res-usage``);
 4. autotunes on the card (phase "autotune + calibration (cuda)"): ranks
    SpMV and BFS (probes of the top 3) and GSANA (a probe of the top 1) on
    the same inputs with the uncalibrated profile, runs ``strategy="auto"``
@@ -32,6 +40,8 @@ result, without them or outside a checkout of the repository. In order:
    count set to 0 just before and checked to be 28 (one prefill) just after;
    then holds the flash prefill's logits against the reference attention
    branch on the same weights, and 4 teacher-forced decode steps after each;
+   then serves the reduced config (head dim 32) in bf16 and float32 the same
+   way, flash launches counted, each held against the reference branch;
 6. holds the ``cuda`` substrate against the ``local`` one on small inputs;
 7. profiles one request of each op, one LM prefill and one decode step
    (device busy time against wall time, kernel count, top kernels);
@@ -42,11 +52,13 @@ result, without them or outside a checkout of the repository. In order:
    kernel, TFLOP/s where operations do); bfs_expand in every round of the
    main path's BFS, on the graph's (P, V_p, K) planes as ``bfs_cuda`` hands
    them over, with its occupancy at the main path's grain and the sums of
-   the round times and bounds; flash attention on layer 0's q, k,
-   v captured from the prefill, at the bf16 kernel's k tile, and on small
-   float32 cases of every mask kind; topk_sim also at a 32x32 grid, whose
-   buckets (past 64 slots) take its wide instance; and counts the tensor-core
-   instructions (``cuobjdump -sass``) in the built flash_attn library.
+   the round times and bounds; flash attention on layer 0's q, k, v
+   captured from the prefill, at full layer shapes of head dims 96
+   (phi-3-vision-4.2b), 80 (zamba2-2.7b) and 32 (bf16 and float32), each
+   at its kernel's k tile, and on small cases of every mask kind at head
+   dims 20 to 128; topk_sim also at a 32x32 grid; and counts the
+   tensor-core instructions (``cuobjdump -sass``) in the built flash_attn
+   library.
 
 Prints RunReport rows, then a ``{"kernels": [...]}`` line, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -81,10 +93,18 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TEACHER_STEPS = "llama3.2-3b", 4, 2048,
 # map, a position) moves logits by whole units
 LM_LOGIT_ATOL = 0.5
 # the flash kernel against its plain version at the same k blocks
-# (KERNEL_BLOCK_K in bf16): the output rounds to bf16, one ulp is 2**-8
+# (kernel_block_k): in bf16 the output rounds to bf16, one ulp is 2**-8
 # relative
 FLASH_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=1e-5)  # float32 sums in another order
+# the stripe kernel's second matrix: 2^20 rows, average degree 8, 524 hub
+# rows of degree 512 (dense ELL planes of 4.3 GB), striped at this grain
+SKEWED, SKEWED_GRAIN = dict(n=1 << 20, avg_deg=8.0, max_deg=512, seed=0), 256
+# GSANA's coarse grid: buckets of about this many vertices (a 16x16 grid at
+# n = 131072), which take topk_sim's wide instance
+COARSE_BUCKET = 512
+# the reduced LM (head dim 32) served in both types: batch, prompt, tokens
+REDUCED_BATCH, REDUCED_PROMPT, REDUCED_GEN = 4, 256, 8
 
 
 def card_line() -> str:
@@ -172,17 +192,23 @@ def main() -> int:
         return finish(smoke)
     launches = smoke.phase("main path through engine.run on the cuda substrate",
                            main_path, smoke, inputs)
+    smoke.phase("CSR-stripe SpMV through spmv(variant='stripe'), timed", stripe_path, smoke,
+                inputs)
+    smoke.phase(f"GSANA at a coarse grid (pick_grid(n, {COARSE_BUCKET})) through engine.run, "
+                "topk_sim timed", coarse_gsana_path, smoke, inputs)
     smoke.phase("autotune + calibration (cuda)", autotune_path, smoke, inputs)
     lm = smoke.phase(f"LM serve ({LM_ARCH}, flash)", lm_serve_path, smoke, dev)
     if lm is not None:
         smoke.phase("LM flash prefill and decode vs the reference attention branch",
                     lm_vs_reference, smoke, lm)
+    reduced = smoke.phase(f"LM serve (reduced {LM_ARCH}, head dim 32, flash) vs the reference "
+                          "attention branch", reduced_lm_path, smoke, dev)
     smoke.phase("cuda vs local substrate on small inputs", small_agreement, smoke, dev)
     smoke.phase("device time per request (torch.profiler)", profile_requests, inputs, lm)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None:
-        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm)
+        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced)
     return finish(smoke)
 
 
@@ -543,7 +569,7 @@ def lm_vs_reference(smoke: Smoke, lm: dict) -> None:
     dev = model.embed.device
     tokens = torch.as_tensor(lm["prompts"], device=dev)
     ctx_f, ctx_r = Ctx(cfg), Ctx(dataclasses.replace(cfg, attn_impl="reference"))
-    max_len = LM_PROMPT + LM_TEACHER_STEPS
+    max_len = tokens.shape[1] + LM_TEACHER_STEPS
     lf, cf = api.prefill(ctx_f, model, tokens, max_len)
     t0 = time.perf_counter()
     lr, cr = api.prefill(ctx_r, model, tokens, max_len)
@@ -562,11 +588,199 @@ def lm_vs_reference(smoke: Smoke, lm: dict) -> None:
         smoke.check(err <= LM_LOGIT_ATOL, f"{what}: flash and reference logits differ by {err}")
 
     compare("prefill last-token logits", lf, lr)
-    for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, LM_BATCH, 1))):
+    for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, tokens.shape[0], 1))):
         t = torch.as_tensor(tok, device=dev)
         lf, cf = api.decode_step(ctx_f, model, t, cf)
         lr, cr = api.decode_step(ctx_r, model, t, cr)
         compare(f"teacher-forced decode step {i}", lf, lr)
+
+
+def csr_mv_ms(csr, x) -> "float | None":
+    """Milliseconds of ``torch.mv`` on ``csr`` as a sparse CSR tensor (a
+    yardstick the port never calls), or None where this build has none."""
+    try:
+        with warnings.catch_warnings():  # sparse CSR is "beta": keep its notices out of the log
+            warnings.simplefilter("ignore", UserWarning)
+            a_lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
+        torch.mv(a_lib, x)
+        return time_ms(lambda: torch.mv(a_lib, x), 50)
+    except (RuntimeError, NotImplementedError) as e:  # no sparse CSR product in this build
+        print(f"  torch.sparse CSR yardstick unavailable: {e}")
+        return None
+
+
+def stripe_work(cols: torch.Tensor, plan, n_x: int) -> tuple[int, int]:
+    """(bytes, operations) of a striped product on these planes: the column
+    index of every slot a stripe reads, the value of each valid slot (a
+    padded slot's value is never needed), x and y once; 2 flops a valid slot."""
+    n_rows = cols.shape[0]
+    rows = np.full(len(plan.widths), plan.block_rows, dtype=np.int64)
+    rows[-1] = n_rows - plan.block_rows * (len(plan.widths) - 1)
+    slots = int((rows * plan.widths).sum())
+    valid = int((cols >= 0).sum())
+    return slots * 4 + valid * 4 + n_x * 4 + n_rows * 4, 2 * valid
+
+
+def stripe_path(smoke: Smoke, inputs: dict) -> None:
+    """The CSR-stripe SpMV through its entry point ``spmv(variant="stripe")``
+    on the main path's Laplacian planes and on a skewed matrix with hub rows,
+    the stripe kernel's launch count set to 0 just before each and read just
+    after (one launch a call, no ELL launch); ``variant="auto"`` too, which
+    takes the stripes where dense-ELL padding wastes 2x or more. Then each is
+    held against spmv_ell_plain and timed beside its bound, the JAX
+    package's bucketed loop (the plain version), spmv_ell on the same planes
+    and torch.mv on the same CSR."""
+    from repro_torch.core import MigratoryStrategy
+    from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
+    from repro_torch.kernels.spmv.ops import STRIPE_WASTE_THRESHOLD, spmv
+    from repro_torch.kernels.spmv.stripe import (
+        build_stripe_plan, spmv_ell_stripes, spmv_stripes_plain,
+    )
+    from repro_torch.sparse import ell_from_csr, skewed_matrix
+
+    a = inputs["spmv"].a
+    p, rp, k = a.cols.shape
+    x = inputs["spmv"].x
+    dev = x.device
+    t0 = time.perf_counter()
+    sk = skewed_matrix(SKEWED["n"], SKEWED["avg_deg"], SKEWED["max_deg"], seed=SKEWED["seed"],
+                       device=dev)
+    e = ell_from_csr(sk, device=dev)
+    x_sk = torch.as_tensor(np.random.default_rng(5).standard_normal(sk.n_cols).astype(np.float32),
+                           device=dev)
+    print(f"  skewed_matrix({SKEWED}): {sk.nnz} nnz, ELL {tuple(e.cols.shape)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    cases = {
+        "laplacian_2d(2048), the main path's planes": (
+            a.cols.reshape(p * rp, k), a.vals.reshape(p * rp, k), x,
+            max(1, min(MigratoryStrategy().dynamic_grain(rp), p * rp)), inputs["csr"]),
+        f"skewed_matrix(2^20, {SKEWED['avg_deg']}, {SKEWED['max_deg']})": (
+            e.cols, e.vals, x_sk, SKEWED_GRAIN, sk),
+    }
+    for case, (cols, vals, xv, grain, csr) in cases.items():
+        t0 = time.perf_counter()
+        plan = build_stripe_plan(cols, grain)
+        print(f"  {case}: stripe plan at grain {grain} in {time.perf_counter() - t0:.1f} s, "
+              f"{len(plan.widths)} stripes, widths {sorted(set(plan.widths.tolist()))}, "
+              f"{plan.padded_slots} striped slots, waste ratio {plan.waste_ratio:.3f}", flush=True)
+        spmv_ell.launches = 0
+        y, n_launch = counted(spmv_ell_stripes, lambda: spmv(cols, vals, xv, grain=grain,
+                                                             variant="stripe", stripe_plan=plan))
+        smoke.check(n_launch == 1 and spmv_ell.launches == 0,
+                    f"{case}: spmv(variant='stripe') made {n_launch} stripe and "
+                    f"{spmv_ell.launches} ELL launches, want 1 and 0")
+        y_auto, n_auto = counted(spmv_ell_stripes, lambda: spmv(cols, vals, xv, grain=grain,
+                                                                variant="auto", stripe_plan=plan))
+        smoke.check(n_auto == int(plan.waste_ratio >= STRIPE_WASTE_THRESHOLD),
+                    f"{case}: variant='auto' made {n_auto} stripe launches at waste "
+                    f"{plan.waste_ratio}")
+        y_p = spmv_ell_plain(cols, vals, xv)
+        for got in (y, y_auto):
+            err = (got - y_p).abs()
+            smoke.check(bool((err <= SPMV_ATOL + SPMV_RTOL * y_p.abs()).all()),
+                        f"{case}: stripes disagree with spmv_ell_plain: max abs err {float(err.max())}")
+        err = float((y - y_p).abs().max())
+        ell_ms = time_ms(lambda: spmv_ell(cols, vals, xv, block_rows=grain), 50)
+        kernel_row(smoke, {"spmv_ell_stripes": n_launch}, "spmv_ell_stripes",
+                   "src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv/stripe.py:101", err,
+                   time_ms(lambda: spmv_ell_stripes(cols, vals, xv, plan=plan), 50),
+                   time_ms(lambda: spmv_stripes_plain(cols, vals, xv, plan), 5, warmup=1),
+                   *stripe_work(cols, plan, xv.shape[0]), csr_mv_ms(csr, xv),
+                   case=case, grain=grain, waste_ratio=plan.waste_ratio, spmv_ell_ms=ell_ms)
+
+
+def coarse_gsana_path(smoke: Smoke, inputs: dict) -> None:
+    """GSANA on the main path's alignment pair at a coarse grid, whose
+    buckets (hundreds of vertices, past what shared memory held before)
+    take topk_sim's wide instance: ``engine.run`` on ``cuda``, topk_sim's
+    launch count set to 0 just before and read just after, held equal to
+    the ``local`` substrate; then the kernel on the grid's PAIR planes, held
+    against its plain version and timed beside its bound."""
+    from repro_torch.core import Layout, MigratoryStrategy, Scheme, bucketize, pick_grid
+    from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
+    from repro_torch.engine import CudaSubstrate, GSANAInputs, LocalSubstrate, Request, run
+    from repro_torch.kernels import build
+    from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
+    from repro_torch.kernels.topk_sim.ops import pair_planes
+
+    usage = resource_usage(build.library_path("topk_sim"), build.nvcc())
+    for line in usage or ["not measured (no cuobjdump)"]:
+        print(f"  topk_sim resources (cuobjdump -res-usage): {line}")
+    gi = inputs["gsana"]
+    dev = gi.b1.vid.device
+    n = gi.vs1.n
+    grid = pick_grid(n, COARSE_BUCKET)
+    cap = max(bucketize(gi.vs1, grid, device=dev).cap, bucketize(gi.vs2, grid, device=dev).cap)
+    coarse = GSANAInputs(gi.vs1, gi.vs2, bucketize(gi.vs1, grid, cap=cap, device=dev),
+                         bucketize(gi.vs2, grid, cap=cap, device=dev), k=gi.k,
+                         ground_truth=gi.ground_truth)
+    print(f"  gsana coarse: n={n}, grid {grid}x{grid}, cap {cap}, {grid * grid * 9} PAIR tasks",
+          flush=True)
+    st = MigratoryStrategy(layout=Layout.HCB, scheme=Scheme.PAIR)
+    ((cand, score), report), n_launch = counted(
+        topk_sim, lambda: run(Request("gsana", coarse, st, CudaSubstrate(dev))))
+    print("report " + report.to_json(), flush=True)
+    smoke.check(n_launch > 0, "coarse gsana: topk_sim was never launched")
+    smoke.check(tuple(cand.shape) == (n, gi.k) and bool(torch.isfinite(score).all()),
+                "coarse gsana: shape or non-finite scores")
+    (c_local, s_local), _ = run(Request("gsana", coarse, st, LocalSubstrate(dev)), iters=1, warmup=0)
+    smoke.check(torch.equal(cand, c_local), "coarse gsana: cuda and local candidates differ")
+    torch.testing.assert_close(score, s_local, rtol=0, atol=1e-6)
+    print(f"  coarse gsana recall@{gi.k}: {report.metrics['recall_at_k']}; cuda equals local")
+
+    planes = pair_planes(gi.vs1, gi.vs2, coarse.b1, coarse.b2, *pair_tasks(grid, dev))[:4]
+    kw = dict(zip(("t1", "t2", "t3"), DEFAULT_VOCAB), k=gi.k)
+    s_k, i_k = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    smoke.check(torch.equal(i_k, i_p), f"topk_sim slots disagree with its plain version at cap {cap}")
+    finite = torch.isfinite(s_p)
+    smoke.check(torch.equal(finite, torch.isfinite(s_k)), f"topk_sim: -inf pattern differs at cap {cap}")
+    err = float((s_k[finite] - s_p[finite]).abs().max())
+    smoke.check(err <= 1e-6, f"topk_sim scores differ by {err} at cap {cap}")
+    kernel_row(smoke, {"topk_sim": n_launch}, "topk_sim", "src/repro_torch/csrc/topk_sim.cu",
+               "src/repro/kernels/topk_sim/kernel.py:50", err,
+               time_ms(lambda: topk_sim(*planes, **kw), 5),
+               time_ms(lambda: topk_sim_plain(*planes, **kw), 1, warmup=0),
+               *topk_sim_work(*planes, kw), None,
+               case=f"coarse grid {grid}x{grid}, {planes[0].shape[0]} tasks of {cap}x{cap} slots",
+               cap=cap, valid_pairs=float((planes[2].sum(1) * planes[3].sum(1)).sum()))
+
+
+def reduced_lm_path(smoke: Smoke, dev) -> dict:
+    """The reduced config of the LM (2 layers, d_model 128, head dim 32) served
+    on the card with flash attention in bf16 (the tensor-core kernel, head
+    dim padded to 64) and float32 (the CUDA-core kernel, padded to 32), the
+    flash launch count set to 0 just before each serve and read just after,
+    then each held against the reference attention branch as the full-width
+    LM is. Returns the launches by type."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attn
+    from repro_torch.launch.serve import lm_serve
+    from repro_torch.models import api
+
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(reduced_config(LM_ARCH, dtype), attn_impl="flash")
+        model = api.init_params(cfg, seed=0, device=dev)
+        prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, (REDUCED_BATCH, REDUCED_PROMPT))
+        lm_serve(cfg, model, prompts, 2, dev)  # warm-up
+        res, n_launch = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, REDUCED_GEN, dev))
+        toks = res.tokens
+        smoke.check(tuple(toks.shape) == (REDUCED_BATCH, REDUCED_GEN)
+                    and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                    f"reduced lm_serve ({dtype}): tokens {tuple(toks.shape)} out of shape or range")
+        print(f"  reduced {cfg.name} {dtype}: head dim {cfg.head_dim}, {cfg.num_layers} layers, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads, prompts {REDUCED_BATCH}x{REDUCED_PROMPT}: "
+              f"prefill {res.prefill_seconds * 1e3:.3f} ms, decode "
+              f"{res.decode_seconds * 1e3 / (REDUCED_GEN - 1):.3f} ms a step, flash launches {n_launch}",
+              flush=True)
+        smoke.check(n_launch == cfg.num_layers,
+                    f"reduced {dtype}: flash_attn launched {n_launch} times, want {cfg.num_layers}")
+        lm_vs_reference(smoke, {"cfg": cfg, "model": model, "prompts": prompts})
+        launches[dtype] = n_launch
+    return launches
 
 
 def small_agreement(smoke: Smoke, dev) -> None:
@@ -681,8 +895,6 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
     from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy, bfs_expand_plain
     from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
-    from repro_torch.kernels.spmv.ops import spmv
-    from repro_torch.kernels.spmv.stripe import build_stripe_plan
     from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
     from repro_torch.kernels.topk_sim.ops import pair_planes
 
@@ -700,29 +912,12 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     err = (y_k - y_p).abs()
     smoke.check(bool((err <= SPMV_ATOL + SPMV_RTOL * y_p.abs()).all()),
                 f"spmv_ell disagrees with its plain version: max abs err {float(err.max())}")
-    csr = inputs["csr"]
-    try:
-        with warnings.catch_warnings():  # sparse CSR is "beta": keep its notices out of the log
-            warnings.simplefilter("ignore", UserWarning)
-            a_lib = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.data, size=csr.shape)
-        torch.mv(a_lib, x)
-        library_ms = time_ms(lambda: torch.mv(a_lib, x), 50)
-    except (RuntimeError, NotImplementedError) as e:  # no sparse CSR product in this build
-        print(f"  torch.sparse CSR yardstick unavailable: {e}")
-        library_ms = None
+    library_ms = csr_mv_ms(inputs["csr"], x)
     r, n = p * rp, a.shape[1]
     entry("spmv_ell", "src/repro_torch/csrc/spmv_ell.cu", "src/repro/kernels/spmv/kernel.py:31",
           float(err.max()), time_ms(lambda: spmv_ell(cols, vals, x, block_rows=grain), 50),
           time_ms(lambda: spmv_ell_plain(cols, vals, x), 20), r * k * 8 + n * 4 + r * 4, 2 * r * k,
           library_ms)
-    plan = build_stripe_plan(cols, grain)
-    y_s = spmv(cols, vals, x, variant="stripe", stripe_plan=plan)
-    err = (y_s - y_p).abs()
-    smoke.check(bool((err <= SPMV_ATOL + SPMV_RTOL * y_p.abs()).all()),
-                f"spmv stripe variant disagrees with spmv_ell_plain: max abs err {float(err.max())}")
-    stripe_ms = time_ms(lambda: spmv(cols, vals, x, variant="stripe", stripe_plan=plan), 20)
-    print(f"  spmv stripe variant (same kernel, per-width launches): {stripe_ms} ms, "
-          f"max abs err vs spmv_ell_plain {float(err.max())}")
 
     # -- BFS: every round of the main path, on the planes bfs_cuda hands over --
     g = inputs["bfs"].g
@@ -843,10 +1038,10 @@ def causal_pairs(sq: int, skv: int) -> int:
     return int(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())
 
 
-def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
-    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
-    library's SASS, from the toolkit's cuobjdump (beside ``nvcc``) or the
-    copy in Triton's package; None where neither is found."""
+def cuobjdump(lib: Path, nvcc: str, flag: str) -> "list[str] | None":
+    """The lines of ``cuobjdump <flag>`` on a built library, from the
+    toolkit's cuobjdump (beside ``nvcc``) or the copy in Triton's package;
+    None where neither is found."""
     cands = [Path(nvcc).with_name("cuobjdump")]
     spec = importlib.util.find_spec("triton")  # located, not imported
     if spec is not None and spec.submodule_search_locations:
@@ -854,21 +1049,58 @@ def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
     tool = next((c for c in cands if c.exists()), None)
     if tool is None:
         return None
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+    return subprocess.run([str(tool), flag, str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout.splitlines()
+
+
+def resource_usage(lib: Path, nvcc: str) -> "list[str] | None":
+    """Registers, stack (spills), shared and local memory of every kernel in
+    a built library (``cuobjdump -res-usage``), a line each."""
+    lines = cuobjdump(lib, nvcc, "-res-usage")
+    if lines is None:
+        return None
+    out, name = [], None
+    for line in lines:
+        if line.strip().startswith("Function "):
+            name = line.strip()[len("Function "):].rstrip(":")
+        elif "REG:" in line and name is not None:
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
+    library's SASS; None where no cuobjdump is found."""
+    sass = cuobjdump(lib, nvcc, "-sass")
+    if sass is None:
+        return None
     return {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HGMMA", "HMMA")}
 
 
-def flash_vs_plain(smoke: Smoke, lm: dict) -> None:
-    """flash_attn against its plain version (at the bf16 kernel's k tile) on
-    layer 0's q, k, v from the prefill, then on small float32 cases (at the
-    float32 kernel's 64-key tile); times kernel, plain version and
+# full attention layers of the repo's configs at the LM cell's batch and
+# prompt (B = 4, S = 2048, causal) that the main path does not run: (case,
+# Hq, Hkv, D, dtype, where its launches are counted). D = 96 and 80 run the
+# main path's tensor-core instance (head dim padded to 128); D = 32 the
+# reduced configs' instances, whose serve counts them
+FLASH_LAYERS = [
+    ("phi-3-vision-4.2b layer", 32, 32, 96, torch.bfloat16, "main"),
+    ("zamba2-2.7b shared attention layer", 32, 32, 80, torch.bfloat16, "main"),
+    ("head dim 32 (reduced configs), bf16", 32, 32, 32, torch.bfloat16, "bfloat16"),
+    ("head dim 32 (reduced configs), float32", 32, 32, 32, torch.float32, "float32"),
+]
+
+
+def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None") -> None:
+    """flash_attn against its plain version (at the kernel's k tile) on
+    layer 0's q, k, v from the prefill, on small cases of every mask kind at
+    the configs' head dims, and at the full layer shapes of
+    :data:`FLASH_LAYERS`; times kernel, plain version and
     scaled_dot_product_attention (a yardstick, never called by the port)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.kernel import (
-        KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+        flash_attention_plain, flash_attn, kernel_block_k,
     )
 
     counts = tensor_core_instructions(build.library_path("flash_attn"), build.nvcc())
@@ -882,41 +1114,67 @@ def flash_vs_plain(smoke: Smoke, lm: dict) -> None:
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     qf, kf, vf = q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d), v.reshape(b * hkv, skv, d)
-    got = flash_attn(qf, kf, vf)
-    want = flash_attention_plain(qf, kf, vf, block_k=KERNEL_BLOCK_K)
-    err = float((got.float() - want.float()).abs().max())
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
-
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-
-    try:
-        lib_err = float((library().reshape(got.shape).float() - got.float()).abs().max())
-        library_ms = time_ms(library, 20)
-    except RuntimeError as e:  # no GQA attention in this build
-        print(f"  scaled_dot_product_attention yardstick unavailable: {e}")
-        lib_err, library_ms = None, None
-    print(f"  layer 0, q {tuple(qf.shape)} k/v {tuple(kf.shape)} {q.dtype}: max abs err "
-          f"{err} vs the plain version, {lib_err} vs scaled_dot_product_attention")
 
     gen = torch.Generator().manual_seed(0)
-    for bhq, bhkv, s_q, s_kv, causal, window in FLASH_SMALL_CASES:
-        for dd in (64, 128):
-            qs, ks, vs = (torch.randn((n, s, dd), generator=gen).to(q.device)
+    dims = {torch.float32: (32, 64, 80, 96, 128), torch.bfloat16: (32, 80, 96, 72, 20)}
+    for dtype, dd in [(t, dd) for t, ds in dims.items() for dd in ds]:
+        tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+        for bhq, bhkv, s_q, s_kv, causal, window in FLASH_SMALL_CASES:
+            qs, ks, vs = (torch.randn((n, s, dd), generator=gen).to(q.device, dtype)
                           for n, s in ((bhq, s_q), (bhkv, s_kv), (bhkv, s_kv)))
             torch.testing.assert_close(
-                flash_attn(qs, ks, vs, causal=causal, window=window),
-                flash_attention_plain(qs, ks, vs, causal=causal, window=window, block_k=64),
-                **FLASH_F32_TOL, msg=lambda m: f"float32 case {(bhq, bhkv, s_q, s_kv, causal, window, dd)}: {m}")
-    print(f"  {2 * len(FLASH_SMALL_CASES)} small float32 cases agree within {FLASH_F32_TOL}")
+                flash_attn(qs, ks, vs, causal=causal, window=window).float(),
+                flash_attention_plain(qs, ks, vs, causal=causal, window=window,
+                                      block_k=kernel_block_k(dtype, dd)).float(),
+                **tol, msg=lambda m: f"case {(bhq, bhkv, s_q, s_kv, causal, window, dd, dtype)}: {m}")
+    print(f"  {sum(map(len, dims.values())) * len(FLASH_SMALL_CASES)} small cases agree "
+          f"(head dims: float32 {dims[torch.float32]}, bf16 {dims[torch.bfloat16]})")
 
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
-    n_ops = 4 * d * b * hq * causal_pairs(sq, skv)  # QK^T and PV, 2 flops a MAC
-    kernel_row(smoke, {"flash_attn": lm["launches"]}, "flash_attn", "src/repro_torch/csrc/flash_attn.cu",
-               "src/repro/kernels/flash_attention/kernel.py:25", err,
-               time_ms(lambda: flash_attn(qf, kf, vf), 20),
-               time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=KERNEL_BLOCK_K), 3, warmup=1),
-               n_bytes, n_ops, library_ms, PEAK_BF16_PER_S)
+    def flash_row(case, qf, kf, vf, q4, k4, v4, launches, **extra):
+        """One flash_attn row on folded (qf, kf, vf), with SDPA on the
+        (B, H, S, D) views (q4, k4, v4)."""
+        dtype, dd = qf.dtype, qf.shape[2]
+        block_k = kernel_block_k(dtype, dd)
+        got = flash_attn(qf, kf, vf)
+        want = flash_attention_plain(qf, kf, vf, block_k=block_k)
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL))
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+
+        try:
+            lib_err = float((library().reshape(got.shape).float() - got.float()).abs().max())
+            library_ms = time_ms(library, 20)
+        except RuntimeError as e:  # no GQA attention in this build
+            print(f"  scaled_dot_product_attention yardstick unavailable: {e}")
+            lib_err, library_ms = None, None
+        print(f"  {case}: q {tuple(qf.shape)} k/v {tuple(kf.shape)} {dtype}: max abs err {err} vs "
+              f"the plain version, {lib_err} vs scaled_dot_product_attention")
+        b_, hq_, sq_, _ = q4.shape
+        n_bytes = (2 * qf.numel() + kf.numel() + vf.numel()) * qf.element_size()  # q, k, v in; o out
+        n_ops = 4 * dd * b_ * hq_ * causal_pairs(sq_, kf.shape[1])  # QK^T and PV, 2 flops a MAC
+        kernel_row(smoke, {"flash_attn": launches}, "flash_attn", "src/repro_torch/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:25", err,
+                   time_ms(lambda: flash_attn(qf, kf, vf), 20),
+                   time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=block_k), 3, warmup=1),
+                   n_bytes, n_ops, library_ms,
+                   PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S,
+                   case=case, head_dim=dd, dtype=str(dtype).replace("torch.", ""), **extra)
+
+    flash_row(f"{LM_ARCH} layer 0 of the prefill", qf, kf, vf, q, k, v, lm["launches"])
+    for case, hq_, hkv_, dd, dtype, counted_in in FLASH_LAYERS:
+        q4 = torch.randn((LM_BATCH, hq_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
+        k4, v4 = (torch.randn((LM_BATCH, hkv_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
+                  for _ in "kv")
+        if counted_in == "main":
+            launches, where = lm["launches"], f"LM serve {LM_ARCH} (the same tensor-core instance)"
+        else:
+            launches = (reduced or {}).get(counted_in, 0)
+            where = f"LM serve reduced {LM_ARCH}, {counted_in}"
+        flash_row(case, q4.reshape(-1, LM_PROMPT, dd), k4.reshape(-1, LM_PROMPT, dd),
+                  v4.reshape(-1, LM_PROMPT, dd), q4, k4, v4, launches, launches_counted_in=where)
 
 
 def finish(smoke: Smoke) -> int:

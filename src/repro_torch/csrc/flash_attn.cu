@@ -10,9 +10,12 @@
 // o written once): 0.104 ms at the tensor cores' 989 TFLOP/s against
 // 0.040 ms at 3.35 TB/s.
 //
-// Two kernels, chosen by the element type alone:
-// - bf16 (the serving path) multiplies on the tensor cores with warpgroup
-//   matrix multiplies (wgmma). A block owns 128 q rows of one b*hq row, as
+// Two kernels, chosen by the element type and the head dim d (1 to 256):
+// - bf16 with d a multiple of 8 and at most 128 (the serving path) runs at
+//   d padded to DP = 64 or 128: TMA fills the columns past d with zeros,
+//   which add exact zeros to Q K^T and to the unstored columns of P V, and
+//   S = Q K^T stops after ceil(d / 16) steps of 16. It multiplies on the
+//   tensor cores with warpgroup matrix multiplies (wgmma). A block owns 128 q rows of one b*hq row, as
 //   two consumer warpgroups of 64 rows, and one producer warpgroup that
 //   gives most of its registers to them (setmaxnreg). One producer thread
 //   keeps K and V tiles of 128 keys coming by TMA, each into its own
@@ -29,7 +32,10 @@
 //   multiply P V.
 // - float32 keeps the CUDA-core kernel below (namespace cuda_cores): on the
 //   tensor cores float32 would mean TF32, which changes float32 results.
-//   It is bound by the CUDA cores' 67 TFLOP/s.
+//   It is bound by the CUDA cores' 67 TFLOP/s. bf16 at a head dim the
+//   tensor-core kernel does not take (not a multiple of 8, whose rows TMA
+//   cannot address, or 129 to 256) runs on it too, converted to float32 in
+//   shared memory. Both pad d to DP = 32, 64, 128 or 256 with zero columns.
 //
 // Kept from the TPU kernel by both, each a place where two versions could
 // differ: the scale multiplies the fp32 dot product; the causal mask is
@@ -42,8 +48,8 @@
 // l and acc unchanged (alpha = 1, p = 0). The causal tail's q tiles have the
 // most k tiles, so they are issued first and the last wave of blocks is
 // short. Online softmax rounds p at tile edges, so each kernel's plain
-// version is taken at its k tile: 128 keys for bf16 (KERNEL_BLOCK_K in
-// kernels/flash_attention/kernel.py), 64 for float32.
+// version is taken at its k tile: 128 keys on the tensor cores, 64 on the
+// CUDA cores (kernel_block_k in kernels/flash_attention/kernel.py).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,12 +59,14 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// float32: the CUDA-core kernel. 256 threads as 16 x 16, 64 x 64 tiles in
-// shared memory as float32, multiply-adds as explicit fmaf (the library is
-// built with -fmad=false, which only stops the compiler from contracting
+// The CUDA-core kernel: float32, and bf16 where the tensor-core kernel does
+// not take the head dim. 256 threads as 16 x 16, 64-row tiles in shared
+// memory as float32, DP columns wide (the head dim d padded to 32, 64, 128 or
+// 256; columns at or past d are zero, so they add exact zeros to every dot
+// product and are never stored). Multiply-adds are explicit fmaf (the library
+// is built with -fmad=false, which only stops the compiler from contracting
 // a*b+c).
 namespace cuda_cores {
-
 
 constexpr int BQ = 64;        // q rows per block
 constexpr int BK = 64;        // k rows per tile
@@ -68,29 +76,57 @@ constexpr int TN = 4;         // score columns per thread
 constexpr int LDP = BK + 4;   // row stride of the p tile
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 // p rounded to the value type, as the TPU kernel's p.astype(v.dtype)
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
-// rows x D elements of src (row-major, D per row) into dst (row stride
-// D + 4) as float32; rows at or past `valid` are zero
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int valid) {
-  constexpr int LDS = D + 4;
+// rows x DP elements into dst (row stride DP + 4) as float32 from src
+// (row-major, d per row); rows at or past `valid` and columns at or past d
+// are zero
+template <typename T, int DP, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int valid, int d) {
+  constexpr int LDS = DP + 4;
 #pragma unroll 8
-  for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    dst[r * LDS + c] = r < valid ? to_float(src[static_cast<long long>(r) * D + c]) : 0.0f;
+  for (int e = threadIdx.x; e < ROWS * DP; e += THREADS) {
+    const int r = e / DP, c = e % DP;
+    dst[r * LDS + c] = r < valid && c < d ? to_float(src[static_cast<long long>(r) * d + c]) : 0.0f;
   }
 }
 
-template <typename T, int D>
+// VW consecutive columns of a shared-memory row, as one load
+template <int VW>
+struct Vec;
+template <>
+struct Vec<4> {
+  float v[4];
+  __device__ __forceinline__ explicit Vec(const float* p) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  }
+};
+template <>
+struct Vec<2> {
+  float v[2];
+  __device__ __forceinline__ explicit Vec(const float* p) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+};
+
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int group, int q_len, int kv_len, int causal, int window,
+             T* __restrict__ o, int d, int group, int q_len, int kv_len, int causal, int window,
              float scale) {
-  constexpr int LDS = D + 4;
-  constexpr int TD = D / 16;  // output columns per thread
+  constexpr int LDS = DP + 4;
+  constexpr int TD = DP / 16;          // output columns per thread
+  constexpr int VW = TD < 4 ? TD : 4;  // of them adjacent: thread tx owns columns
+                                       // tx * VW + 16 * VW * jj + e, e < VW
   extern __shared__ float4 smem4[];
   float* s_q = reinterpret_cast<float*>(smem4);  // BQ x LDS
   float* s_kv = s_q + BQ * LDS;                  // BK x LDS, k then v
@@ -102,9 +138,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest (causal tail) first
   const int off = kv_len - q_len;
 
-  const T* qb = q + (bh * q_len + q0) * D;
-  const T* kb = k + bkv * kv_len * D;
-  const T* vb = v + bkv * kv_len * D;
+  const T* qb = q + (bh * q_len + q0) * d;
+  const T* kb = k + bkv * kv_len * d;
+  const T* vb = v + bkv * kv_len * d;
 
   // k tiles that can hold a visible key for some row of this q tile
   const int q_last = min(q0 + BQ, q_len) - 1;
@@ -118,7 +154,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     if (lo > 0) kt_begin = static_cast<int>(min(lo / BK, static_cast<long long>(kt_end)));
   }
 
-  load_tile<T, D, BQ>(s_q, qb, q_len - q0);
+  load_tile<T, DP, BQ>(s_q, qb, q_len - q0, d);
 
   float m[TM], l[TM], acc[TM][TD];
 #pragma unroll
@@ -131,7 +167,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
-    load_tile<T, D, BK>(s_kv, kb + static_cast<long long>(k0) * D, kv_len - k0);
+    load_tile<T, DP, BK>(s_kv, kb + static_cast<long long>(k0) * d, kv_len - k0, d);
     __syncthreads();  // q (first pass) and k in shared memory
 
     float s[TM][TN];
@@ -140,14 +176,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
-    for (int d = 0; d < D; d += 4) {
+    for (int c = 0; c < DP; c += 4) {
       float4 qv[TM], kv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(s_q + (ty * TM + i) * LDS + d);
+        qv[i] = *reinterpret_cast<const float4*>(s_q + (ty * TM + i) * LDS + c);
 #pragma unroll
       for (int j = 0; j < TN; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(s_kv + (tx + 16 * j) * LDS + d);
+        kv[j] = *reinterpret_cast<const float4*>(s_kv + (tx + 16 * j) * LDS + c);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -194,7 +230,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     }
     __syncthreads();  // every thread is done with k; p is complete
 
-    load_tile<T, D, BK>(s_kv, vb + static_cast<long long>(k0) * D, kv_len - k0);
+    load_tile<T, DP, BK>(s_kv, vb + static_cast<long long>(k0) * d, kv_len - k0, d);
     __syncthreads();  // v in shared memory
 
 #pragma unroll 4
@@ -206,16 +242,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
 #pragma unroll
-        for (int jj = 0; jj < TD / 4; ++jj) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(s_kv + (kk + e) * LDS + tx * 4 + 64 * jj);
+        for (int jj = 0; jj < TD / VW; ++jj) {
+          const Vec<VW> vv(s_kv + (kk + e) * LDS + tx * VW + 16 * VW * jj);
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
             const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
-            acc[i][jj * 4 + 0] = fmaf(pe, vv.x, acc[i][jj * 4 + 0]);
-            acc[i][jj * 4 + 1] = fmaf(pe, vv.y, acc[i][jj * 4 + 1]);
-            acc[i][jj * 4 + 2] = fmaf(pe, vv.z, acc[i][jj * 4 + 2]);
-            acc[i][jj * 4 + 3] = fmaf(pe, vv.w, acc[i][jj * 4 + 3]);
+#pragma unroll
+            for (int x = 0; x < VW; ++x) acc[i][jj * VW + x] = fmaf(pe, vv.v[x], acc[i][jj * VW + x]);
           }
         }
       }
@@ -228,26 +261,40 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int qi = q0 + ty * TM + i;
     if (qi >= q_len) continue;
     const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
-    T* orow = o + (bh * q_len + qi) * D;
+    T* orow = o + (bh * q_len + qi) * d;
 #pragma unroll
-    for (int jj = 0; jj < TD / 4; ++jj)
+    for (int jj = 0; jj < TD / VW; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) store(orow + tx * 4 + 64 * jj + e, acc[i][jj * 4 + e] / l_safe);
+      for (int x = 0; x < VW; ++x) {
+        const int c = tx * VW + 16 * VW * jj + x;
+        if (c < d) store(orow + c, acc[i][jj * VW + x] / l_safe);
+      }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, long long bhq, int group,
+template <typename T, int DP>
+int launch(const void* q, const void* k, const void* v, void* o, long long bhq, int d, int group,
            int sq, int skv, int causal, int window, float scale, cudaStream_t stream) {
-  const int smem = (BQ * (D + 4) + BK * (D + 4) + BQ * LDP) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D>,
+  const int smem = (BQ * (DP + 4) + BK * (DP + 4) + BQ * LDP) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bhq), static_cast<unsigned>((sq + BQ - 1) / BQ));
-  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  flash_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), group, sq, skv, causal, window, scale);
+      static_cast<T*>(o), d, group, sq, skv, causal, window, scale);
   return cudaGetLastError();
+}
+
+// the narrowest instance that holds head dim d (d <= 256)
+template <typename T>
+int launch_padded(const void* q, const void* k, const void* v, void* o, long long bhq, int d,
+                  int group, int sq, int skv, int causal, int window, float scale,
+                  cudaStream_t s) {
+  if (d <= 32) return launch<T, 32>(q, k, v, o, bhq, d, group, sq, skv, causal, window, scale, s);
+  if (d <= 64) return launch<T, 64>(q, k, v, o, bhq, d, group, sq, skv, causal, window, scale, s);
+  if (d <= 128) return launch<T, 128>(q, k, v, o, bhq, d, group, sq, skv, causal, window, scale, s);
+  return launch<T, 256>(q, k, v, o, bhq, d, group, sq, skv, causal, window, scale, s);
 }
 
 }  // namespace cuda_cores
@@ -266,15 +313,16 @@ constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int SW = 64;                              // bf16 in one 128-byte swizzled row
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Each tile of rows x D is stored as D/64 column blocks of rows x 64, one
+// Each tile of rows x DP is stored as DP/64 column blocks of rows x 64, one
 // 128-byte row per q row or key, its 16-byte chunks XOR-ed with row % 8.
 // The pattern repeats every 1024 bytes, so every tile starts on such a
-// boundary (the sizes below are multiples of 1024).
-template <int D>
+// boundary (the sizes below are multiples of 1024). DP is the head dim d
+// padded to 64 or 128: TMA fills the columns at or past d with zeros.
+template <int DP>
 struct Smem {
-  __nv_bfloat16 q[BM * D];
-  __nv_bfloat16 k[STAGES][BN * D];
-  __nv_bfloat16 v[STAGES][BN * D];
+  __nv_bfloat16 q[BM * DP];
+  __nv_bfloat16 k[STAGES][BN * DP];
+  __nv_bfloat16 v[STAGES][BN * DP];
   uint64_t k_full[STAGES], v_full[STAGES];    // the tile has landed
   uint64_t k_empty[STAGES], v_empty[STAGES];  // every consumer warp is done with it
   uint64_t q_full;
@@ -306,7 +354,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
-// a box of 64 columns x rows x 1 of a (batch, rows, D) tensor, by TMA
+// a box of 64 columns x rows x 1 of a (batch, rows, d) tensor, by TMA
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
                                          int batch, uint64_t* bar) {
   asm volatile(
@@ -410,9 +458,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
 }
 
 
-template <int D>
+template <int DP>
 __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (D == 64) {
+  if constexpr (DP == 64) {
     wgmma_rs_n64(d, a, db);
   } else {
     wgmma_rs_n128(d, a, db);
@@ -426,12 +474,16 @@ __device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a, uint64_t d
 // kk takes the same rows and columns 16kk .. 16kk + 15, so P's fragment is
 // S's registers 8kk .. 8kk + 7 packed in pairs.
 
-// S = Q K^T for the warpgroup's 64 rows: K-major both, 16 columns of D (32
-// bytes of a swizzled row) a step. Issued, not waited for.
-template <int D>
+// S = Q K^T for the warpgroup's 64 rows: K-major both, 16 columns of the
+// padded head dim (32 bytes of a swizzled row) a step. Steps over the zero
+// columns past d add nothing; they are issued all the same, because a
+// branch between the wgmma instructions serializes them (10 to 26 % slower
+// on an H100 at d = 128, 96, 80 and 32: tools/flash_topk_variants.py).
+// Issued, not waited for.
+template <int DP>
 __device__ __forceinline__ void issue_s(float* sc, uint32_t q_base, uint32_t k_base) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t step = (kk % 4) * 32;  // within the column block kk / 4
     wgmma_ss_n128(sc, desc(q_base + (kk / 4) * BM * 128 + step, 0, 1024),
                   desc(k_base + (kk / 4) * BN * 128 + step, 0, 1024), kk > 0);
@@ -441,10 +493,10 @@ __device__ __forceinline__ void issue_s(float* sc, uint32_t q_base, uint32_t k_b
 
 // O += P V: V MN-major, 16 keys (two 8-key groups of 1024 bytes) a step.
 // Issued, not waited for.
-template <int D>
+template <int DP>
 __device__ __forceinline__ void issue_pv(float* acc, uint32_t (*pa)[4], uint32_t v_base) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv<D>(acc, pa[kk], desc(v_base + kk * 2048, BN * 128, 1024));
+  for (int kk = 0; kk < BN / 16; ++kk) wgmma_pv<DP>(acc, pa[kk], desc(v_base + kk * 2048, BN * 128, 1024));
   wgmma_commit();
 }
 
@@ -503,14 +555,15 @@ __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sc) {
     for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 }
 
-template <int D>
+// FULL: d == DP, so every column is stored (no test in the epilogue)
+template <int DP, bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int group,
-                int q_len, int kv_len, int causal, int window, float scale) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int d,
+                int group, int q_len, int kv_len, int causal, int window, float scale) {
   extern __shared__ uint8_t smem_raw[];
-  Smem<D>& sm =
-      *reinterpret_cast<Smem<D>*>(smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024);
+  Smem<DP>& sm =
+      *reinterpret_cast<Smem<DP>*>(smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024);
 
   const int bh = blockIdx.x;
   const int bkv = bh / group;
@@ -546,17 +599,18 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   if (warp >= CONSUMER_WARPS) {  // the producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 32 * CONSUMER_WARPS) {
-      mbar_expect_tx(&sm.q_full, BM * D * 2);
-      for (int c = 0; c < D / SW; ++c) tma_load(sm.q + c * BM * SW, &tq, c * SW, q0, bh, &sm.q_full);
+      // every box counts in full, its zero fill past d and past the last row included
+      mbar_expect_tx(&sm.q_full, BM * DP * 2);
+      for (int c = 0; c < DP / SW; ++c) tma_load(sm.q + c * BM * SW, &tq, c * SW, q0, bh, &sm.q_full);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % STAGES, k0 = (kt_begin + i) * BN;
         const uint32_t parity = (i / STAGES - 1) & 1;  // tile i - STAGES released the stage
         if (i >= STAGES) mbar_wait(&sm.k_empty[s], parity);
-        mbar_expect_tx(&sm.k_full[s], BN * D * 2);
-        for (int c = 0; c < D / SW; ++c) tma_load(sm.k[s] + c * BN * SW, &tk, c * SW, k0, bkv, &sm.k_full[s]);
+        mbar_expect_tx(&sm.k_full[s], BN * DP * 2);
+        for (int c = 0; c < DP / SW; ++c) tma_load(sm.k[s] + c * BN * SW, &tk, c * SW, k0, bkv, &sm.k_full[s]);
         if (i >= STAGES) mbar_wait(&sm.v_empty[s], parity);
-        mbar_expect_tx(&sm.v_full[s], BN * D * 2);
-        for (int c = 0; c < D / SW; ++c) tma_load(sm.v[s] + c * BN * SW, &tv, c * SW, k0, bkv, &sm.v_full[s]);
+        mbar_expect_tx(&sm.v_full[s], BN * DP * 2);
+        for (int c = 0; c < DP / SW; ++c) tma_load(sm.v[s] + c * BN * SW, &tv, c * SW, k0, bkv, &sm.v_full[s]);
       }
     }
   } else {
@@ -568,9 +622,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int g = lane / 4, c4 = lane % 4;
     const int r0 = q0 + wg * 64 + (warp % 4) * 16 + g;  // this thread's rows: r0 and r0 + 8
     const uint32_t q_base = smem_addr(sm.q) + wg * 64 * 128;
-    float acc[D / 2];
+    float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, alpha[2];
     float sc[BN / 2];
     uint32_t pa[BN / 16][4];
@@ -587,7 +641,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_wait(&sm.k_full[0], 0);
       __syncwarp();
       wgmma_fence();
-      issue_s<D>(sc, q_base, smem_addr(sm.k[0]));
+      issue_s<DP>(sc, q_base, smem_addr(sm.k[0]));
       wgmma_wait();
       fence_regs<BN / 2>(sc);
       if (lane == 0) mbar_arrive(&sm.k_empty[0]);
@@ -600,17 +654,17 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_wait(&sm.v_full[sp], ((i - 1) / STAGES) & 1);
       __syncwarp();
       wgmma_fence();
-      issue_s<D>(sc, q_base, smem_addr(sm.k[s]));
-      issue_pv<D>(acc, pa, smem_addr(sm.v[sp]));
+      issue_s<DP>(sc, q_base, smem_addr(sm.k[s]));
+      issue_pv<DP>(acc, pa, smem_addr(sm.v[sp]));
       asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");  // S is done, P V runs on
       fence_regs<BN / 2>(sc);
       if (lane == 0) mbar_arrive(&sm.k_empty[s]);
       softmax(sc, m, l, alpha, edge(k0), r0, k0, c4, off, kv_len, causal, window, scale);
       wgmma_wait();
-      fence_regs<D / 2>(acc);
+      fence_regs<DP / 2>(acc);
       if (lane == 0) mbar_arrive(&sm.v_empty[sp]);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         acc[4 * j + 0] *= alpha[0];
         acc[4 * j + 1] *= alpha[0];
         acc[4 * j + 2] *= alpha[1];
@@ -623,9 +677,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_wait(&sm.v_full[sp], ((n_tiles - 1) / STAGES) & 1);
       __syncwarp();
       wgmma_fence();
-      issue_pv<D>(acc, pa, smem_addr(sm.v[sp]));
+      issue_pv<DP>(acc, pa, smem_addr(sm.v[sp]));
       wgmma_wait();
-      fence_regs<D / 2>(acc);
+      fence_regs<DP / 2>(acc);
     }
 
 #pragma unroll
@@ -633,11 +687,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       const int qi = r0 + 8 * r;
       if (qi >= q_len) continue;
       const float l_safe = l[r] == 0.0f ? 1.0f : l[r];
-      __nv_bfloat16* orow = o + (static_cast<long long>(bh) * q_len + qi) * D;
+      __nv_bfloat16* orow = o + (static_cast<long long>(bh) * q_len + qi) * (FULL ? DP : d);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c4) =
-            pack_bf16(acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
+      for (int j = 0; j < DP / 8; ++j)  // d is a multiple of 8: a pair never straddles it
+        if (FULL || 8 * j < d)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * c4) =
+              pack_bf16(acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
     }
   }
 }
@@ -668,7 +723,9 @@ EncodeTiled encode_tiled() {
 }
 
 // a (batch, rows, d) bf16 tensor read in boxes of 64 columns x box_rows rows,
-// 128-byte swizzled; rows past the end read as zero
+// 128-byte swizzled; rows past the end and columns past d read as zero (the
+// box may be wider than d). TMA wants global strides in multiples of 16
+// bytes, so d is a multiple of 8.
 bool tensor_map(CUtensorMap* map, const void* ptr, int d, long long rows, long long batch,
                 int box_rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
@@ -682,25 +739,26 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int d, long long rows, long l
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, long long bhq, long long bhkv,
-           int group, int sq, int skv, int causal, int window, float scale, cudaStream_t stream) {
+           int d, int group, int sq, int skv, int causal, int window, float scale,
+           cudaStream_t stream) {
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   // TMA reads from 16-byte aligned addresses only
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v)) % 16)
     return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, D, sq, bhq, BM) || !tensor_map(&tk, k, D, skv, bhkv, BN) ||
-      !tensor_map(&tv, v, D, skv, bhkv, BN))
+  if (!tensor_map(&tq, q, d, sq, bhq, BM) || !tensor_map(&tk, k, d, skv, bhkv, BN) ||
+      !tensor_map(&tv, v, d, skv, bhkv, BN))
     return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(sizeof(Smem<D>)) + 1024;  // + room to align to 1024
-  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = static_cast<int>(sizeof(Smem<DP>)) + 1024;  // + room to align to 1024
+  const auto kernel = d == DP ? flash_tc_kernel<DP, true> : flash_tc_kernel<DP, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(bhq), static_cast<unsigned>((sq + BM - 1) / BM));
-  flash_tc_kernel<D><<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
-                                                       group, sq, skv, causal, window, scale);
+  kernel<<<grid, THREADS, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), d, group,
+                                          sq, skv, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -713,7 +771,10 @@ extern "C" const char* error_string(int err) {
 }
 
 // q, o: (bhq, sq, d); k, v: (bhkv, skv, d); all contiguous, of one type:
-// dtype 0 = float32, 1 = bf16. d is 64 or 128; bhq is a multiple of bhkv.
+// dtype 0 = float32, 1 = bf16; 1 <= d <= 256; bhq is a multiple of bhkv.
+// bf16 with d a multiple of 8 and at most 128 runs on the tensor cores at
+// d padded to 64 or 128; float32, and bf16 at any other d, on the CUDA
+// cores at d padded to 32, 64, 128 or 256.
 // window: keys with q_pos + skv - sq - k_pos >= window are masked (the caller
 // passes skv for no window). Returns the launch's cudaError_t.
 extern "C" int flash_attn(int dtype, const void* q, const void* k, const void* v, void* o,
@@ -725,9 +786,14 @@ extern "C" int flash_attn(int dtype, const void* q, const void* k, const void* v
   if (bhq > 0x7fffffffLL || (sq + BQ - 1) / BQ > 65535) return cudaErrorInvalidConfiguration;
   const int group = static_cast<int>(bhq / bhkv);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64) return cuda_cores::launch<float, 64>(q, k, v, o, bhq, group, sq, skv, causal, window, scale, s);
-  if (dtype == 0 && d == 128) return cuda_cores::launch<float, 128>(q, k, v, o, bhq, group, sq, skv, causal, window, scale, s);
-  if (dtype == 1 && d == 64) return tc::launch<64>(q, k, v, o, bhq, bhkv, group, sq, skv, causal, window, scale, s);
-  if (dtype == 1 && d == 128) return tc::launch<128>(q, k, v, o, bhq, bhkv, group, sq, skv, causal, window, scale, s);
-  return cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || (dtype != 0 && dtype != 1)) return cudaErrorInvalidValue;
+  if (dtype == 1 && d % 8 == 0 && d <= 64)
+    return tc::launch<64>(q, k, v, o, bhq, bhkv, d, group, sq, skv, causal, window, scale, s);
+  if (dtype == 1 && d % 8 == 0 && d <= 128)
+    return tc::launch<128>(q, k, v, o, bhq, bhkv, d, group, sq, skv, causal, window, scale, s);
+  if (dtype == 1)
+    return cuda_cores::launch_padded<__nv_bfloat16>(q, k, v, o, bhq, d, group, sq, skv, causal,
+                                                    window, scale, s);
+  return cuda_cores::launch_padded<float>(q, k, v, o, bhq, d, group, sq, skv, causal, window,
+                                          scale, s);
 }

@@ -5,11 +5,14 @@ and its plain PyTorch version.
 :func:`flash_attention_plain` on CPU tensors
 (:mod:`repro_torch.kernels.runtime`). Queries are ``(B*Hq, Sq, D)``, keys
 and values ``(B*Hkv, Skv, D)``; q row ``bh`` reads kv row ``bh // group``.
-The kernel masks ragged tiles itself, so nothing is padded. It multiplies
-bf16 on the tensor cores in k tiles of :data:`KERNEL_BLOCK_K` keys and
-float32 on the CUDA cores in k tiles of 64; ``block_k`` shapes only the
-plain version's k blocks, which set where its online softmax rounds, so the
-plain version matches the kernel at the kernel's tile.
+The kernel masks ragged tiles itself, so nothing is padded. It takes head
+dims 1 to :data:`MAX_HEAD_DIM`: bf16 with a head dim that
+:func:`on_tensor_cores` accepts multiplies on the tensor cores in k tiles
+of :data:`KERNEL_BLOCK_K` keys, float32 and every other bf16 head dim on
+the CUDA cores in k tiles of 64 (:func:`kernel_block_k`). ``block_k``
+shapes only the plain version's k blocks, which set where its online
+softmax rounds, so the plain version matches the kernel at the kernel's
+tile.
 """
 from __future__ import annotations
 
@@ -21,11 +24,24 @@ import torch
 from ..build import check, load, stream_of
 from ..runtime import on_card
 
-#: head dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
-#: keys per k tile of the bf16 (tensor-core) kernel; the float32 kernel's is 64
+#: the largest head dim the kernels take (the CUDA-core kernel's widest tile)
+MAX_HEAD_DIM = 256
+#: keys per k tile of the tensor-core kernel; the CUDA-core kernel's is 64
 KERNEL_BLOCK_K = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def on_tensor_cores(dtype: torch.dtype, d: int) -> bool:
+    """True where the tensor-core kernel takes (dtype, head dim d): bf16 with
+    d a multiple of 8 (TMA addresses rows in 16-byte steps) and at most 128;
+    everything else up to :data:`MAX_HEAD_DIM` runs on the CUDA cores."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+
+
+def kernel_block_k(dtype: torch.dtype, d: int) -> int:
+    """Keys per k tile of the kernel that takes (dtype, d): the plain
+    version's ``block_k`` that rounds like it."""
+    return KERNEL_BLOCK_K if on_tensor_cores(dtype, d) else 64
 
 
 def flash_attention_plain(
@@ -105,8 +121,8 @@ def flash_attn(
     bhkv, skv, _ = k.shape
     if bhkv == 0 or bhq % bhkv:
         raise ValueError(f"q rows {bhq} must be a multiple of kv rows {bhkv}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"unsupported head dim {d}: the kernel takes {KERNEL_HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"unsupported head dim {d}: the kernels take 1 to {MAX_HEAD_DIM}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"need one of float32/bfloat16 for q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

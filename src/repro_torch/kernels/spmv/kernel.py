@@ -24,6 +24,17 @@ def spmv_ell_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> t
     return torch.where(mask, vals * xg, torch.zeros_like(vals)).sum(dim=1)
 
 
+def check_planes(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    """Raise unless the kernels take these planes: cols (R, K) int32, vals
+    (R, K) float32, x (N,) float32, all contiguous."""
+    if vals.shape != cols.shape or cols.dim() != 2 or x.dim() != 1:
+        raise ValueError(f"cols {tuple(cols.shape)}, vals {tuple(vals.shape)}, x {tuple(x.shape)}")
+    if cols.dtype != torch.int32 or vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"need int32 cols and float32 vals/x, got {cols.dtype}, {vals.dtype}, {x.dtype}")
+    if not (cols.is_contiguous() and vals.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous cols, vals and x")
+
+
 @functools.cache
 def _entry():
     lib = load("spmv_ell")
@@ -42,13 +53,8 @@ def spmv_ell(
     x (N,) float32 -> y (R,) float32."""
     if not on_card(cols, vals, x):
         return spmv_ell_plain(cols, vals, x)
+    check_planes(cols, vals, x, "spmv_ell")
     r, k = cols.shape
-    if vals.shape != cols.shape or x.dim() != 1:
-        raise ValueError(f"cols {tuple(cols.shape)}, vals {tuple(vals.shape)}, x {tuple(x.shape)}")
-    if cols.dtype != torch.int32 or vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"need int32 cols and float32 vals/x, got {cols.dtype}, {vals.dtype}, {x.dtype}")
-    if not (cols.is_contiguous() and vals.is_contiguous() and x.is_contiguous()):
-        raise ValueError("spmv_ell needs contiguous cols, vals and x")
     y = torch.empty(r, dtype=torch.float32, device=cols.device)
     lib, fn = _entry()
     block = max(1, min(int(block_rows), max(r, 1)))

@@ -1,6 +1,5 @@
-"""Public SpMV kernel op: dispatches the blocked-ELL and CSR-stripe variants
-of the one CUDA kernel; device policy and the ragged last block live in the
-kernel wrapper."""
+"""Public SpMV kernel op: dispatches the blocked-ELL and CSR-stripe kernels;
+device policy and the ragged last block live in the kernel wrappers."""
 from __future__ import annotations
 
 import torch

@@ -3,29 +3,38 @@
 The blocked-ELL kernel pads every row to the *global* max degree K — a
 power-law matrix with one hub row executes its padding everywhere. This
 variant keeps the CSR row structure at stripe granularity instead: rows are
-cut into stripes of ``block_rows``, each stripe is padded only to *its own*
-max width (rounded to a power of two so shapes bucket), and stripes of equal
-width share one launch of the blocked-ELL kernel (``csrc/spmv_ell.cu``).
+cut into stripes of ``block_rows``, and each stripe reads only *its own*
+max width (rounded to a power of two, as the JAX package buckets widths).
 
 The stripe decomposition depends on the *values* of ``cols`` (degrees), so
 it is built from a concrete matrix on the host (:func:`build_stripe_plan`,
 one numpy pass) and can be reused for every later product with that matrix.
+
+``spmv_ell_stripes`` launches the CUDA kernel ``spmv_stripes_f32`` of
+``csrc/spmv_ell.cu`` on CUDA tensors: one launch, the planes read in place,
+the plan's width table uploaded once per device. On CPU tensors it runs
+:func:`spmv_stripes_plain`, the JAX package's loop (one blocked-ELL product
+per width bucket over gathered rows) with the ELL kernel's plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ...core.util import ceil_div
 from ...device import to_numpy
-from .kernel import spmv_ell
+from ..build import check, load, stream_of
+from ..runtime import on_card
+from .kernel import check_planes, spmv_ell_plain
 
 
 @dataclasses.dataclass(frozen=True)
 class StripeBucket:
-    """Stripes of equal padded width: one kernel launch per bucket."""
+    """Stripes of equal padded width: one product of the plain loop each."""
 
     k: int  # padded width every row in this bucket is sliced to
     rows: np.ndarray  # global row ids, concatenated stripe ranges (int32)
@@ -39,6 +48,9 @@ class StripePlan:
     n_rows: int
     k_full: int
     buckets: tuple[StripeBucket, ...]
+    widths: np.ndarray  # (n_stripes,) int32: the slots stripe s reads
+    # widths as an int32 tensor per device, uploaded at first use
+    _device_widths: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def padded_slots(self) -> int:
@@ -50,6 +62,13 @@ class StripePlan:
         """Dense-ELL slots / striped slots: how much padding striping
         avoids (1.0 = none; hub-skewed matrices reach 5-50x)."""
         return (self.n_rows * self.k_full) / max(1, self.padded_slots)
+
+    def widths_on(self, device: torch.device) -> torch.Tensor:
+        """The width table on ``device``, copied there once."""
+        t = self._device_widths.get(device)
+        if t is None:
+            t = self._device_widths[device] = torch.as_tensor(self.widths, device=device)
+        return t
 
 
 def _row_widths(cols: np.ndarray) -> np.ndarray:
@@ -71,18 +90,44 @@ def build_stripe_plan(cols, block_rows: int = 256) -> StripePlan:
     c = to_numpy(cols) if isinstance(cols, torch.Tensor) else np.asarray(cols)
     r, k = c.shape
     block = max(1, min(block_rows, r))
-    widths = _row_widths(c)
+    row_widths = _row_widths(c)
+    widths = np.zeros(ceil_div(r, block), dtype=np.int32)
     by_k: dict[int, list[np.ndarray]] = {}
-    for s in range(ceil_div(r, block)):
+    for s in range(len(widths)):
         lo, hi = s * block, min((s + 1) * block, r)
-        w = int(widths[lo:hi].max(initial=0))
-        k_s = min(k, _pow2_at_least(w)) if w > 0 else 0
+        w = int(row_widths[lo:hi].max(initial=0))
+        k_s = widths[s] = min(k, _pow2_at_least(w)) if w > 0 else 0
         by_k.setdefault(k_s, []).append(np.arange(lo, hi, dtype=np.int32))
     buckets = tuple(
         StripeBucket(k=k_s, rows=np.concatenate(ranges))
         for k_s, ranges in sorted(by_k.items())
     )
-    return StripePlan(block_rows=block, n_rows=r, k_full=k, buckets=buckets)
+    return StripePlan(block_rows=block, n_rows=r, k_full=k, buckets=buckets, widths=widths)
+
+
+def spmv_stripes_plain(
+    cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, plan: StripePlan
+) -> torch.Tensor:
+    """The JAX package's loop: per width bucket, gather its rows' first k
+    slots, take the ELL product, scatter into y."""
+    y = torch.zeros(plan.n_rows, dtype=vals.dtype, device=vals.device)
+    for bucket in plan.buckets:
+        if bucket.k == 0:
+            continue  # all-empty stripes: y stays 0
+        rows = torch.as_tensor(bucket.rows, device=cols.device).long()
+        y[rows] = spmv_ell_plain(cols[rows, : bucket.k], vals[rows, : bucket.k], x)
+    return y
+
+
+@functools.cache
+def _entry():
+    lib = load("spmv_ell")
+    fn = lib.spmv_stripes_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def spmv_ell_stripes(
@@ -93,8 +138,9 @@ def spmv_ell_stripes(
     block_rows: int = 256,
     plan: "StripePlan | None" = None,
 ) -> torch.Tensor:
-    """y = A @ x through per-width stripe buckets (one blocked-ELL launch
-    each). Without ``plan`` it is built from ``cols`` first."""
+    """y = A @ x reading each stripe's own width of the ELL planes cols
+    (R, K) int32, vals (R, K) float32, x (N,) float32 -> y (R,) float32.
+    Without ``plan`` it is built from ``cols`` first."""
     if plan is None:
         plan = build_stripe_plan(cols, block_rows)
     r, k = cols.shape
@@ -102,15 +148,17 @@ def spmv_ell_stripes(
         raise ValueError(
             f"stripe plan built for shape {(plan.n_rows, plan.k_full)}, got {(r, k)}"
         )
-    y = torch.zeros(r, dtype=vals.dtype, device=vals.device)
-    for bucket in plan.buckets:
-        if bucket.k == 0:
-            continue  # all-empty stripes: y stays 0
-        rows = torch.as_tensor(bucket.rows, device=cols.device).long()
-        y[rows] = spmv_ell(
-            cols[rows, : bucket.k].contiguous(),
-            vals[rows, : bucket.k].contiguous(),
-            x,
-            block_rows=plan.block_rows,
-        )
+    if not on_card(cols, vals, x):
+        return spmv_stripes_plain(cols, vals, x, plan)
+    check_planes(cols, vals, x, "spmv_ell_stripes")
+    widths = plan.widths_on(cols.device)
+    y = torch.empty(r, dtype=torch.float32, device=cols.device)
+    lib, fn = _entry()
+    err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(), widths.data_ptr(),
+             r, k, x.shape[0], plan.block_rows, stream_of(y))
+    check(lib, err, "spmv_ell_stripes")
+    spmv_ell_stripes.launches += 1
     return y
+
+
+spmv_ell_stripes.launches = 0  # kernel launches since the count was last set to 0

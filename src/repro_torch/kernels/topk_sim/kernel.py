@@ -7,7 +7,7 @@ One task = one ⟨B, B'⟩ PAIR task (paper Alg. 5): feature planes
 ``feat_v (A, F)`` and ``feat_u (B, F)`` -> the k best (score, u slot) of
 every v row, from k argmax-and-mask passes (the first index among equal
 maxima; a row with fewer than k valid slots repeats slot 0 at -inf, as the
-TPU kernel does).
+TPU kernel does). The kernel takes any A, B and k, k > B included.
 """
 from __future__ import annotations
 
@@ -19,6 +19,10 @@ import torch
 from ...core.gsana import NEG, sim_from_feats, task_chunk
 from ..build import check, load, stream_of
 from ..runtime import on_card
+
+#: the most scored feature columns (5 + t1 + t2 + t3) the kernel takes: its
+#: wide instance keeps 40 rows of them in a block's 227 KB of shared memory
+MAX_SCORED_COLUMNS = 1441
 
 
 def topk_sim_plain(
@@ -72,7 +76,8 @@ def topk_sim(
     tensors = (feat_v, feat_u, mask_v, mask_u)
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in tensors):
         raise TypeError("topk_sim needs contiguous float32 features and masks")
-    if not (1 <= k <= b <= 1024 and 5 + t1 + t2 + t3 <= f):
+    width = 5 + t1 + t2 + t3
+    if not (k >= 1 and b >= 1 and width <= min(f, MAX_SCORED_COLUMNS)):
         raise ValueError(f"unsupported shape: A={a}, B={b}, F={f}, k={k}, vocab={(t1, t2, t3)}")
     scores = torch.empty((p, a, k), dtype=torch.float32, device=feat_v.device)
     idx = torch.empty((p, a, k), dtype=torch.int32, device=feat_v.device)

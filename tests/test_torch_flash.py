@@ -7,10 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_folded as jax_flash_folded
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_reference as jax_reference
 from repro_torch.kernels.flash_attention.kernel import (
-    KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+    KERNEL_BLOCK_K, MAX_HEAD_DIM, flash_attention_plain, flash_attn, kernel_block_k,
+    on_tensor_cores,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
@@ -116,3 +118,52 @@ def test_flash_attn_on_cpu_runs_the_plain_version_without_counting():
     assert flash_attn.launches == before
     torch.testing.assert_close(got, flash_attention_plain(q, k, v, window=16, block_k=16),
                                rtol=0, atol=0)
+
+
+# (bh_q, bh_kv, sq, skv, causal, window) at the head dims of phi-3-vision-4.2b
+# (96) and zamba2-2.7b (80): GQA causal, a sliding window, q the tail of a
+# longer kv; lengths are multiples of the reference kernel's 32-row blocks
+FOLDED_CASES = [(8, 4, 64, 64, True, None), (4, 2, 96, 96, True, 48), (4, 4, 64, 128, True, None)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("bhq,bhkv,sq,skv,causal,window", FOLDED_CASES)
+def test_flash_plain_matches_folded_kernel_at_config_head_dims(bhq, bhkv, sq, skv, causal, window,
+                                                               d, dtype):
+    """The plain version (what the card's kernel is held to) against the
+    JAX package's folded Pallas kernel in interpret mode, at the same k
+    blocks, for head dims that are not 64 or 128."""
+    rng = np.random.default_rng(bhq * sq + skv + d)
+    arrays = [rng.standard_normal((n, s_, d)).astype(np.float32)
+              for n, s_ in ((bhq, sq), (bhkv, skv), (bhkv, skv))]
+    (jq, jk, jv), (q, k, v) = _both(arrays, dtype)
+    want = jax_flash_folded(jq, jk, jv, causal=causal, window=window, block_q=32, block_k=32,
+                            interpret=True)
+    got = flash_attention_plain(q, k, v, causal=causal, window=window, block_k=32)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), _np(want), **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+def test_flash_kernel_dispatch_rule():
+    """Which kernel takes (dtype, head dim), and so at which k tile the plain
+    version rounds like it: the tensor cores take bf16 at multiples of 8 up
+    to 128, the CUDA cores everything else up to MAX_HEAD_DIM."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [on_tensor_cores(bf16, d) for d in (8, 32, 64, 72, 80, 96, 128)] == [True] * 7
+    assert not any(on_tensor_cores(bf16, d) for d in (20, 36, 100, 136, 256))
+    assert not any(on_tensor_cores(f32, d) for d in (32, 64, 128))
+    assert [kernel_block_k(bf16, d) for d in (32, 96, 20, 200)] == [KERNEL_BLOCK_K, KERNEL_BLOCK_K, 64, 64]
+    assert kernel_block_k(f32, 128) == 64
+    assert MAX_HEAD_DIM == 256
+
+
+@pytest.mark.parametrize("d", [20, 80, 96])
+def test_flash_attn_on_cpu_takes_every_head_dim(d):
+    """On CPU tensors the wrapper runs the plain version at any head dim,
+    counting no launch."""
+    q, k, v = (torch.from_numpy(a[0]) for a in _qkv(np.random.default_rng(d), 1, 4, 2, 40, 40, d))
+    before = flash_attn.launches
+    got = flash_attn(q, k, v, block_k=kernel_block_k(q.dtype, d))
+    assert flash_attn.launches == before and got.shape == q.shape
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v, block_k=64), rtol=0, atol=0)

@@ -20,11 +20,12 @@ from repro_torch.engine import (
 from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
 from repro_torch.kernels.bfs.ops import bfs_cuda
 from repro_torch.kernels.flash_attention.kernel import (
-    KERNEL_BLOCK_K, flash_attention_plain, flash_attn,
+    MAX_HEAD_DIM, flash_attention_plain, flash_attn, kernel_block_k,
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv.ops import spmv
+from repro_torch.kernels.spmv.stripe import build_stripe_plan, spmv_ell_stripes
 from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
 from repro_torch.kernels.topk_sim.ops import pair_planes
 
@@ -57,6 +58,35 @@ def test_spmv_stripe_kernel_matches_csr_reference(cuda, variant):
     x = torch.randn(3000, generator=torch.Generator().manual_seed(1)).to(cuda)
     y = spmv(e.cols[0], e.vals[0], x, grain=64, variant=variant)
     torch.testing.assert_close(y, TS.spmv_csr_ref(a, x), rtol=1e-4, atol=1e-4)
+
+
+def stripe_planes(name, device):
+    """ELL planes (cols, vals) for the stripe kernel: the main path's
+    Laplacian, a skewed matrix with hub rows, and that matrix with its
+    planes reversed along the slots (padding first, not left-packed)."""
+    if name == "laplacian":
+        a = T.partition_ell(TS.laplacian_2d(96, device=device), 8, device=device)
+        return a.cols.reshape(-1, a.k), a.vals.reshape(-1, a.k)
+    e = T.partition_ell(TS.skewed_matrix(5000, 6.0, 700, seed=8, device=device), 1, device=device)
+    cols, vals = e.cols[0], e.vals[0]
+    if name == "reversed":
+        cols, vals = cols.flip(1).contiguous(), vals.flip(1).contiguous()
+    return cols, vals
+
+
+@pytest.mark.parametrize("block_rows", [1, 32, 256, 1024])
+@pytest.mark.parametrize("name", ["laplacian", "skewed", "reversed"])
+def test_spmv_stripes_kernel_matches_plain(cuda, name, block_rows):
+    """One launch a call, each stripe read in place at its own width, equal
+    to the ELL product of the whole planes within the reference's stripe
+    tolerance."""
+    cols, vals = stripe_planes(name, cuda)
+    x = torch.randn(int(cols.max()) + 1, generator=torch.Generator().manual_seed(4)).to(cuda)
+    plan = build_stripe_plan(cols, block_rows)
+    before = spmv_ell_stripes.launches
+    y = spmv_ell_stripes(cols, vals, x, plan=plan)
+    assert spmv_ell_stripes.launches == before + 1
+    torch.testing.assert_close(y, spmv_ell_plain(cols, vals, x), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("block_rows", [1, 3, 256, 2048])
@@ -159,6 +189,84 @@ def test_topk_sim_kernel_ties_match_plain(cuda):
     assert torch.equal(i, i_p)
     assert i[1, 0].tolist() == [5, 17, 0, 0] and torch.isneginf(s[1, :, 2:]).all()
     torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+
+
+def test_topk_sim_kernel_ties_match_plain_in_the_wide_instance(cuda):
+    """The tie-heavy planes with 160 more u slots (B = 200, the streaming
+    instance, in chunks of 128 slots) and k = 6: ties across a chunk edge
+    keep the lowest slot first."""
+    (fv, fu, mv, mu), (t1, t2, t3) = tie_heavy_planes()
+    fu = np.concatenate([fu, np.repeat(fu[:, :1], 160, axis=1)], axis=1)
+    mu = np.concatenate([mu, np.ones((mu.shape[0], 160), np.float32)], axis=1)
+    mu[1, 40:] = 0.0
+    mu[1, [130, 199]] = 1.0  # task 1: slots 5, 17, 130, 199 valid, two chunks
+    planes = [torch.as_tensor(x, device=cuda) for x in (fv, fu, mv, mu)]
+    kw = dict(t1=t1, t2=t2, t3=t3, k=6)
+    s, i = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    assert torch.equal(i, i_p)
+    assert i[1, 0].tolist() == [5, 17, 130, 199, 0, 0]
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+
+
+def gsana_like_planes(p, a, b, seed):
+    """Planes at GSANA's own feature width (F = 101, vocabulary (16, 16,
+    64)): small non-negative integers, so the histogram sums are exact and
+    scores tie often; about a tenth of the slots are not valid, and task 0
+    has no valid u slot."""
+    rng = np.random.default_rng(seed)
+    f = 5 + sum(T.DEFAULT_VOCAB)
+    fv = rng.integers(0, 4, (p, a, f)).astype(np.float32)
+    fu = rng.integers(0, 4, (p, b, f)).astype(np.float32)
+    mv = (rng.random((p, a)) > 0.1).astype(np.float32)
+    mu = (rng.random((p, b)) > 0.1).astype(np.float32)
+    mu[0] = 0.0
+    return fv, fu, mv, mu
+
+
+@pytest.mark.parametrize("a,b,k", [(300, 300, 4), (1024, 1024, 4), (2048, 2048, 4),
+                                   (40, 6, 9), (300, 100, 130)])
+def test_topk_sim_wide_kernel_matches_plain(cuda, a, b, k):
+    """Buckets past shared memory's old limit (about 266 rows at F = 101)
+    and k past B: slots equal to the plain version's, scores within 1e-6."""
+    planes = [torch.as_tensor(x, device=cuda) for x in gsana_like_planes(3, a, b, seed=a + b + k)]
+    t1, t2, t3 = T.DEFAULT_VOCAB
+    kw = dict(t1=t1, t2=t2, t3=t3, k=k)
+    s, i = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    assert torch.equal(i, i_p)
+    finite = torch.isfinite(s_p)
+    assert torch.equal(finite, torch.isfinite(s))
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+    if k > b:
+        assert torch.isneginf(s[:, :, b:]).all() and not i[:, :, b:].any()
+
+
+@pytest.mark.parametrize("vocab,f", [((200, 200, 100), 510), ((700, 600, 136), 1441)])
+def test_topk_sim_wide_kernel_at_wide_feature_rows(cuda, vocab, f):
+    """Feature rows too wide for the streaming instance's 64 + 64 rows of
+    shared memory take its 8 + 32-row form, up to MAX_SCORED_COLUMNS; F may
+    hold columns past the scored ones. One column more raises."""
+    from repro_torch.kernels.topk_sim.kernel import MAX_SCORED_COLUMNS
+
+    rng = np.random.default_rng(f)
+    p, a, b = 3, 70, 90
+    fv = rng.integers(0, 3, (p, a, f)).astype(np.float32)
+    fu = rng.integers(0, 3, (p, b, f)).astype(np.float32)
+    mv = (rng.random((p, a)) > 0.1).astype(np.float32)
+    mu = (rng.random((p, b)) > 0.1).astype(np.float32)
+    planes = [torch.as_tensor(x, device=cuda) for x in (fv, fu, mv, mu)]
+    kw = dict(t1=vocab[0], t2=vocab[1], t3=vocab[2], k=5)
+    assert 5 + sum(vocab) <= MAX_SCORED_COLUMNS
+    s, i = topk_sim(*planes, **kw)
+    s_p, i_p = topk_sim_plain(*planes, **kw)
+    assert torch.equal(i, i_p)
+    torch.testing.assert_close(s, s_p, rtol=0, atol=1e-6)
+    if 5 + sum(vocab) == MAX_SCORED_COLUMNS:
+        wider = [torch.zeros((1, 4, f + 1), device=cuda), torch.zeros((1, 4, f + 1), device=cuda),
+                 torch.ones((1, 4), device=cuda), torch.ones((1, 4), device=cuda)]
+        with pytest.raises(ValueError, match="unsupported shape"):
+            topk_sim(*wider, t1=vocab[0] + 1, t2=vocab[1], t3=vocab[2], k=2)
 
 
 @pytest.mark.parametrize("b", [100, 500])
@@ -277,8 +385,10 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     planes = [torch.zeros((1, 4, 101), device=cuda), torch.zeros((1, 2, 101), device=cuda),
               torch.ones((1, 4), device=cuda), torch.ones((1, 2), device=cuda)]
     with pytest.raises(ValueError, match="unsupported shape"):
-        topk_sim(*planes, t1=16, t2=16, t3=64, k=4)  # k > B
+        topk_sim(*planes, t1=16, t2=16, t3=80, k=4)  # more scored columns than F
     assert np.isfinite(topk_sim(*planes, t1=16, t2=16, t3=64, k=2)[0].cpu().numpy()).all()
+    s, i = topk_sim(*planes, t1=16, t2=16, t3=64, k=4)  # k > B: computes, no longer raises
+    assert torch.isneginf(s[..., 2:]).all() and not i[..., 2:].any()
 
 
 # (bh_q, bh_kv, sq, skv, causal, window): every mask kind, ragged lengths
@@ -293,12 +403,20 @@ FLASH_CASES = [
     (8, 2, 333, 517, True, 200),     # ragged in the bf16 kernel's 128-key tiles, a window
 ]
 DTYPE_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# every case in both dtypes at both head dims, and in bf16 one llama3.2-3b
-# layer's heads (24 q, 8 kv, D 128) over 1024 tokens
+# every case in both dtypes at the configs' head dims (32: every reduced
+# config; 80: zamba2-2.7b; 96: phi-3-vision-4.2b; 64, 128), in bf16 one
+# llama3.2-3b layer's heads (24 q, 8 kv, D 128) over 1024 tokens, and bf16
+# head dims that take the CUDA-core kernel: 72 and 20 (not multiples of 16
+# or of 8) and 200 (past the tensor-core kernel's 128)
 FLASH_PARAMS = [
     pytest.param(case, d, dtype, id=f"{'-'.join(map(str, case))}-{d}-{DTYPE_IDS[dtype]}")
-    for case, d, dtype in [(c, d, t) for t in DTYPE_IDS for d in (64, 128) for c in FLASH_CASES]
-    + [((24, 8, 1024, 1024, True, None), 128, torch.bfloat16)]
+    for case, d, dtype in [(c, d, t) for t in DTYPE_IDS for d in (32, 64, 80, 96, 128)
+                           for c in FLASH_CASES]
+    + [((24, 8, 1024, 1024, True, None), 128, torch.bfloat16),
+       ((8, 4, 130, 130, True, 48), 72, torch.bfloat16),
+       ((8, 2, 333, 517, True, 200), 20, torch.bfloat16),
+       ((8, 4, 64, 192, True, None), 200, torch.bfloat16),
+       ((2, 1, 100, 70, False, None), 256, torch.float32)]
 ]
 # float32: sums in another order than the plain version. bf16: the output
 # rounds to bf16 (one ulp is 2**-8 relative) and p rounds to bf16 before PV,
@@ -317,8 +435,8 @@ def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
     got = flash_attn(q, k, v, causal=causal, window=window)
     assert flash_attn.launches == before + 1
     # each kernel's k tile: online softmax rounds p at its edges
-    block_k = KERNEL_BLOCK_K if dtype == torch.bfloat16 else 64
-    want = flash_attention_plain(q, k, v, causal=causal, window=window, block_k=block_k)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 block_k=kernel_block_k(dtype, d))
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     if causal and sq > skv:  # rows that see no key output 0
@@ -335,7 +453,7 @@ def test_flash_attention_op_on_the_card(cuda):
 
 
 def test_flash_attn_raises_instead_of_falling_back(cuda):
-    q = torch.zeros((4, 8, 32), device=cuda)
+    q = torch.zeros((4, 8, MAX_HEAD_DIM + 8), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attn(q, q, q)
     q = torch.zeros((4, 8, 128), device=cuda)

@@ -90,6 +90,34 @@ def test_topk_sim_plain_matches_reference_and_pallas(p, a, b, k):
         np.testing.assert_array_equal(i, i_pal)
 
 
+@pytest.mark.parametrize("p,a,b,k", [(2, 300, 300, 4), (3, 5, 4, 6)])
+def test_topk_sim_plain_matches_pallas_past_shared_memory_and_k(p, a, b, k):
+    """GSANA's own feature width (F = 101, vocabulary (16, 16, 64)) at
+    buckets of 300 slots a side, past what the card's kernel once held in
+    shared memory, and k = 6 > B = 4: the plain version (the card kernel's
+    oracle, and what ``topk_sim`` runs on CPU tensors) equals the Pallas
+    kernel in interpret mode, slot for slot, including the slot-0 repeats
+    at -inf past the valid slots."""
+    rng = np.random.default_rng(a + k)
+    t1, t2, t3 = REF_VOCAB
+    f = 5 + t1 + t2 + t3
+    fv = rng.integers(0, 4, (p, a, f)).astype(np.float32)  # exact sums, frequent ties
+    fu = rng.integers(0, 4, (p, b, f)).astype(np.float32)
+    mv = (rng.random((p, a)) > 0.1).astype(np.float32)
+    mu = (rng.random((p, b)) > 0.1).astype(np.float32)
+    mu[0, :-1] = 0.0  # task 0: one valid u slot
+    kw = dict(t1=t1, t2=t2, t3=t3, k=k)
+    s_pal, i_pal = map(np.asarray, topk_sim_pallas(fv, fu, mv, mu, interpret=True, **kw))
+    planes = [torch.as_tensor(x) for x in (fv, fu, mv, mu)]
+    for fn in (topk_sim_plain, topk_sim):
+        s, i = (x.numpy() for x in fn(*planes, **kw))
+        np.testing.assert_array_equal(i, i_pal)
+        np.testing.assert_allclose(s, s_pal, rtol=0, atol=ATOL)
+    assert np.isneginf(s[0, :, 1:]).all() and (i[0, :, 1:] == 0).all()
+    if k > b:
+        assert np.isneginf(s[:, :, b:]).all()
+
+
 def test_topk_sim_plain_ties_match_pallas():
     planes, (t1, t2, t3) = tie_heavy_planes()  # the planes the card's tie test uses
     kw = dict(t1=t1, t2=t2, t3=t3, k=4)

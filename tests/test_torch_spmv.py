@@ -21,7 +21,9 @@ from repro.kernels.spmv.stripe import build_stripe_plan as jbuild_stripe_plan
 from repro_torch.engine import CudaSubstrate, LocalSubstrate, Request, SpMVInputs, run
 from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv.ops import STRIPE_WASTE_THRESHOLD, spmv
-from repro_torch.kernels.spmv.stripe import build_stripe_plan, spmv_ell_stripes
+from repro_torch.kernels.spmv.stripe import (
+    build_stripe_plan, spmv_ell_stripes, spmv_stripes_plain,
+)
 
 CPU = "cpu"
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -104,6 +106,62 @@ def test_stripe_plan_and_product_match_reference(block_rows):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="stripe plan"):
         spmv_ell_stripes(cols[:-1], vals[:-1], torch.as_tensor(x), plan=plan)
+
+
+@pytest.mark.parametrize("block_rows", [1, 32, 64, 200, 512])
+def test_stripe_width_table_matches_reference_buckets(block_rows):
+    """The plan's per-stripe width table (what the kernel reads) against the
+    reference plan: stripe s reads the width of the bucket its rows are in,
+    and rows x width summed over stripes is the reference's padded slots."""
+    e = TS.ell_from_csr(TS.skewed_matrix(512, 4.0, 128, seed=9, device=CPU), device=CPU)
+    ref_plan = jbuild_stripe_plan(e.cols.numpy(), block_rows)
+    plan = build_stripe_plan(e.cols, block_rows)
+    assert plan.widths.dtype == np.int32
+    assert len(plan.widths) == -(-512 // ref_plan.block_rows)
+    width_of_row = np.full(512, -1)
+    for rb in ref_plan.buckets:
+        width_of_row[np.asarray(rb.rows)] = rb.k
+    block = ref_plan.block_rows
+    np.testing.assert_array_equal(plan.widths, width_of_row[::block])
+    for s_ in range(len(plan.widths)):  # every row of a stripe sits in one bucket
+        assert (width_of_row[s_ * block:(s_ + 1) * block] == plan.widths[s_]).all()
+    rows = np.minimum(block, 512 - block * np.arange(len(plan.widths)))
+    assert int((rows * plan.widths).sum()) == ref_plan.padded_slots == plan.padded_slots
+    assert plan.widths_on(torch.device(CPU)) is plan.widths_on(torch.device(CPU))  # copied once
+
+
+def _not_left_packed(cols, vals, seed):
+    """The same matrix with each row's slots permuted: padding (-1) lands
+    anywhere in a row, as in planes a caller built by hand."""
+    perm = torch.as_tensor(np.random.default_rng(seed).permuted(
+        np.tile(np.arange(cols.shape[1]), (cols.shape[0], 1)), axis=1))
+    return cols.gather(1, perm), vals.gather(1, perm)
+
+
+@pytest.mark.parametrize("block_rows", [16, 64, 200])
+@pytest.mark.parametrize("packed", [True, False])
+def test_stripes_on_cpu_match_reference_product(packed, block_rows):
+    """``spmv_ell_stripes`` on CPU tensors (its plain version, the JAX
+    package's bucketed loop) against the reference's striped product, on
+    left-packed planes and on the same planes with each row's slots
+    permuted, within the reference's stripe tolerance."""
+    e = TS.ell_from_csr(TS.skewed_matrix(512, 4.0, 128, seed=9, device=CPU), device=CPU)
+    cols, vals = e.cols, e.vals
+    if not packed:
+        cols, vals = _not_left_packed(cols, vals, seed=block_rows)
+        assert ((cols[:, :-1] < 0) & (cols[:, 1:] >= 0)).any()  # padding ahead of a valid slot
+    x = np.random.default_rng(3).standard_normal(512).astype(np.float32)
+    want = np.asarray(jspmv(cols.numpy(), vals.numpy(), x, grain=block_rows, variant="stripe",
+                            interpret=True))
+    plan = build_stripe_plan(cols, block_rows)
+    before = spmv_ell_stripes.launches
+    got = spmv_ell_stripes(cols, vals, torch.as_tensor(x), plan=plan)
+    assert spmv_ell_stripes.launches == before  # CPU tensors: no kernel launch
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(got.numpy(),
+                                  spmv_stripes_plain(cols, vals, torch.as_tensor(x), plan).numpy())
+    np.testing.assert_allclose(got.numpy(), spmv_ell_plain(cols, vals, torch.as_tensor(x)).numpy(),
+                               **TOL)
 
 
 @pytest.mark.parametrize("variant", ["ell", "stripe", "auto"])
