@@ -40,8 +40,11 @@ result, without them or outside a checkout of the repository. In order:
    count set to 0 just before and checked to be 28 (one prefill) just after;
    then holds the flash prefill's logits against the reference attention
    branch on the same weights, and 4 teacher-forced decode steps after each;
-   then serves the reduced config (head dim 32) in bf16 and float32 the same
-   way, flash launches counted, each held against the reference branch;
+   then serves the reduced config (head dim 32) in bf16 and float32, and the
+   text stack of phi-3-vision-4.2b (head dim 96, full width, 2 layers) in
+   bf16, the same way: flash launches counted, layer 0's q, k, v from the
+   prefill held against the kernel's plain version, the logits held against
+   the reference branch;
 6. holds the ``cuda`` substrate against the ``local`` one on small inputs;
 7. profiles one request of each op, one LM prefill and one decode step
    (device busy time against wall time, kernel count, top kernels);
@@ -53,8 +56,9 @@ result, without them or outside a checkout of the repository. In order:
    main path's BFS, on the graph's (P, V_p, K) planes as ``bfs_cuda`` hands
    them over, with its occupancy at the main path's grain and the sums of
    the round times and bounds; flash attention on layer 0's q, k, v
-   captured from the prefill, at full layer shapes of head dims 96
-   (phi-3-vision-4.2b), 80 (zamba2-2.7b) and 32 (bf16 and float32), each
+   captured from the prefill, on phi-3-vision-4.2b's layer 0 (head dim 96)
+   likewise, at full layer shapes of head dims 80 (zamba2-2.7b) and 32
+   (bf16 and float32), each
    at its kernel's k tile, and on small cases of every mask kind at head
    dims 20 to 128; topk_sim also at a 32x32 grid; and counts the
    tensor-core instructions (``cuobjdump -sass``) in the built flash_attn
@@ -92,6 +96,12 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_TEACHER_STEPS = "llama3.2-3b", 4, 2048,
 # two differed by 0.16 to 0.22; an error in either branch (a mask, a head
 # map, a position) moves logits by whole units
 LM_LOGIT_ATOL = 0.5
+# the same on 2-layer stacks, relative to the reference's largest |logit|.
+# On the CPU (the kernels' plain versions) the two branches differed by
+# 0.004 of 0.68 (reduced llama, bf16), 0.047 of 4.9 (phi-3 text stack, bf16)
+# and 3.4e-7 of 0.67 (reduced llama, float32); a non-causal mask moved them
+# by 0.27 and 1.3, and a zero attention output by 0.47 and 6.5
+SHALLOW_LOGIT_RTOL = {"bfloat16": 2**-4, "float32": 1e-4}
 # the flash kernel against its plain version at the same k blocks
 # (kernel_block_k): in bf16 the output rounds to bf16, one ulp is 2**-8
 # relative
@@ -105,6 +115,11 @@ SKEWED, SKEWED_GRAIN = dict(n=1 << 20, avg_deg=8.0, max_deg=512, seed=0), 256
 COARSE_BUCKET = 512
 # the reduced LM (head dim 32) served in both types: batch, prompt, tokens
 REDUCED_BATCH, REDUCED_PROMPT, REDUCED_GEN = 4, 256, 8
+# phi-3-vision-4.2b's text stack (phi3-mini: the dense decoder, without the
+# vision patch stub) at full width, head dim 96, cut to this depth, served
+# at the LM's batch and prompt: the path that runs flash_attn's tensor-core
+# instance for head dims below 128 (flash_tc_kernel<128, false>)
+WIDE_HEAD_ARCH, WIDE_HEAD_LAYERS, WIDE_HEAD_GEN = "phi-3-vision-4.2b", 2, 8
 
 
 def card_line() -> str:
@@ -203,12 +218,14 @@ def main() -> int:
                     lm_vs_reference, smoke, lm)
     reduced = smoke.phase(f"LM serve (reduced {LM_ARCH}, head dim 32, flash) vs the reference "
                           "attention branch", reduced_lm_path, smoke, dev)
+    wide = smoke.phase(f"LM serve ({WIDE_HEAD_ARCH} text stack, head dim 96, flash) vs the "
+                       "reference attention branch", wide_head_lm_path, smoke, dev)
     smoke.phase("cuda vs local substrate on small inputs", small_agreement, smoke, dev)
     smoke.phase("device time per request (torch.profiler)", profile_requests, inputs, lm)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
-    if lm is not None:
-        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced)
+    if lm is not None and wide is not None:
+        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced, wide)
     return finish(smoke)
 
 
@@ -499,25 +516,12 @@ def grain_sweep(smoke: Smoke, inputs: dict, sub, grains) -> None:
               f"{len(rounds)} rounds (largest {max(rounds):.4f} ms)", flush=True)
 
 
-def lm_serve_path(smoke: Smoke, dev) -> dict:
-    """The LM's main path: ``lm_serve`` at the full width of the arch, flash
-    attention at prefill. A short warm-up serve first (cuBLAS, the kernel's
-    library) captures layer 0's attention inputs for the kernel check."""
-    import dataclasses
-
+def warm_up_capturing(cfg, model, prompts, dev) -> tuple:
+    """A short warm-up serve (cuBLAS, the kernel's library) that captures
+    layer 0's attention inputs (B, H, S, D), as the model hands them to
+    flash attention at prefill."""
     import repro_torch.models.layers as layers
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attn
     from repro_torch.launch.serve import lm_serve
-    from repro_torch.models import api
-
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
-    t0 = time.perf_counter()
-    model = api.init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} weights in {cfg.dtype}, "
-          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
-    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
 
     captured = []
     flash_attention = layers.flash_attention
@@ -532,6 +536,52 @@ def lm_serve_path(smoke: Smoke, dev) -> dict:
         lm_serve(cfg, model, prompts, 2, dev)
     finally:
         layers.flash_attention = flash_attention
+    return captured[0]
+
+
+def fold_qkv(q, k, v) -> tuple:
+    """(B, H, S, D) views folded to the kernel's (B·H, S, D)."""
+    return tuple(t.reshape(-1, t.shape[2], t.shape[3]) for t in (q, k, v))
+
+
+def flash_on_captured(qkv: tuple, what: str) -> float:
+    """flash_attn on captured layer-0 inputs held against its plain version
+    at the kernel's k tile; returns the largest absolute difference."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain, flash_attn, kernel_block_k,
+    )
+
+    qf, kf, vf = fold_qkv(*qkv)
+    got = flash_attn(qf, kf, vf).float()
+    want = flash_attention_plain(qf, kf, vf, block_k=kernel_block_k(qf.dtype, qf.shape[2])).float()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want,
+                               **(FLASH_BF16_TOL if qf.dtype == torch.bfloat16 else FLASH_F32_TOL),
+                               msg=lambda m: f"{what}: flash_attn vs its plain version: {m}")
+    print(f"  {what}: layer 0 q {tuple(qf.shape)} k/v {tuple(kf.shape)} {qf.dtype}: flash_attn "
+          f"within {err} of its plain version")
+    return err
+
+
+def lm_serve_path(smoke: Smoke, dev) -> dict:
+    """The LM's main path: ``lm_serve`` at the full width of the arch, flash
+    attention at prefill, after a warm-up serve that captures layer 0's
+    attention inputs for the kernel check."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attn
+    from repro_torch.launch.serve import lm_serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} weights in {cfg.dtype}, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    qkv = warm_up_capturing(cfg, model, prompts, dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
     res, launches = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, LM_GEN, dev))
@@ -552,15 +602,16 @@ def lm_serve_path(smoke: Smoke, dev) -> dict:
     print(f"  sample token ids: {toks[0, :16].tolist()}")
     smoke.check(launches == cfg.num_layers,
                 f"flash_attn launched {launches} times in one prefill, want {cfg.num_layers}")
-    return {"cfg": cfg, "model": model, "prompts": prompts, "launches": launches,
-            "qkv": captured[0]}
+    return {"cfg": cfg, "model": model, "prompts": prompts, "launches": launches, "qkv": qkv}
 
 
-def lm_vs_reference(smoke: Smoke, lm: dict) -> None:
+def lm_vs_reference(smoke: Smoke, lm: dict, rtol: "float | None" = None) -> None:
     """The flash prefill against the reference attention branch (q-chunked
     plain PyTorch) on the same weights, then teacher-forced decode steps:
     the same tokens into both caches. Free-running greedy tokens are not
-    compared: random weights give near-tied logits."""
+    compared: random weights give near-tied logits. The logits agree within
+    :data:`LM_LOGIT_ATOL`, or with ``rtol``, within ``rtol`` times the
+    reference's largest |logit|."""
     import dataclasses
 
     from repro_torch.models import Ctx, api
@@ -581,11 +632,12 @@ def lm_vs_reference(smoke: Smoke, lm: dict) -> None:
     def compare(what, a, b):
         a, b = a.float(), b.float()
         smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{what}: non-finite logits")
-        err = float((a - b).abs().max())
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        limit = LM_LOGIT_ATOL if rtol is None else rtol * top
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        print(f"  {what}: max abs diff {err} (largest |logit| {float(b.abs().max())}; "
+        print(f"  {what}: max abs diff {err}, limit {limit} (largest |logit| {top}; "
               f"argmax agrees on {agree:.2f} of rows)")
-        smoke.check(err <= LM_LOGIT_ATOL, f"{what}: flash and reference logits differ by {err}")
+        smoke.check(err <= limit, f"{what}: flash and reference logits differ by {err} > {limit}")
 
     compare("prefill last-token logits", lf, lr)
     for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, tokens.shape[0], 1))):
@@ -750,9 +802,10 @@ def reduced_lm_path(smoke: Smoke, dev) -> dict:
     """The reduced config of the LM (2 layers, d_model 128, head dim 32) served
     on the card with flash attention in bf16 (the tensor-core kernel, head
     dim padded to 64) and float32 (the CUDA-core kernel, padded to 32), the
-    flash launch count set to 0 just before each serve and read just after,
-    then each held against the reference attention branch as the full-width
-    LM is. Returns the launches by type."""
+    flash launch count set to 0 just before each serve and read just after;
+    layer 0's q, k, v from a warm-up serve held against the kernel's plain
+    version, then the logits against the reference attention branch
+    (:data:`SHALLOW_LOGIT_RTOL`). Returns the launches by type."""
     import dataclasses
 
     from repro_torch.configs import reduced_config
@@ -765,7 +818,7 @@ def reduced_lm_path(smoke: Smoke, dev) -> dict:
         cfg = dataclasses.replace(reduced_config(LM_ARCH, dtype), attn_impl="flash")
         model = api.init_params(cfg, seed=0, device=dev)
         prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, (REDUCED_BATCH, REDUCED_PROMPT))
-        lm_serve(cfg, model, prompts, 2, dev)  # warm-up
+        qkv = warm_up_capturing(cfg, model, prompts, dev)
         res, n_launch = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, REDUCED_GEN, dev))
         toks = res.tokens
         smoke.check(tuple(toks.shape) == (REDUCED_BATCH, REDUCED_GEN)
@@ -778,9 +831,47 @@ def reduced_lm_path(smoke: Smoke, dev) -> dict:
               flush=True)
         smoke.check(n_launch == cfg.num_layers,
                     f"reduced {dtype}: flash_attn launched {n_launch} times, want {cfg.num_layers}")
-        lm_vs_reference(smoke, {"cfg": cfg, "model": model, "prompts": prompts})
+        flash_on_captured(qkv, f"reduced {dtype}")
+        lm_vs_reference(smoke, {"cfg": cfg, "model": model, "prompts": prompts},
+                        rtol=SHALLOW_LOGIT_RTOL[dtype])
         launches[dtype] = n_launch
     return launches
+
+
+def wide_head_lm_path(smoke: Smoke, dev) -> dict:
+    """phi-3-vision-4.2b's text stack (:data:`WIDE_HEAD_ARCH`, head dim 96)
+    served through ``lm_serve`` with flash attention, the flash launch count
+    set to 0 just before and read just after; layer 0's q, k, v from a
+    warm-up serve held against the kernel's plain version, then the logits
+    against the reference attention branch (:data:`SHALLOW_LOGIT_RTOL`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attn
+    from repro_torch.launch.serve import lm_serve
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(get_config(WIDE_HEAD_ARCH), family="dense",
+                              num_layers=WIDE_HEAD_LAYERS, attn_impl="flash")
+    model = api.init_params(cfg, seed=0, device=dev)
+    prompts = np.random.default_rng(4).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    qkv = warm_up_capturing(cfg, model, prompts, dev)
+    res, n_launch = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, WIDE_HEAD_GEN, dev))
+    toks = res.tokens
+    smoke.check(tuple(toks.shape) == (LM_BATCH, WIDE_HEAD_GEN)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{cfg.name} text stack: tokens {tuple(toks.shape)} out of shape or range")
+    print(f"  {cfg.name} text stack {cfg.dtype}: head dim {cfg.head_dim}, {cfg.num_layers} layers of "
+          f"width {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, prompts "
+          f"{LM_BATCH}x{LM_PROMPT}: prefill {res.prefill_seconds * 1e3:.3f} ms, decode "
+          f"{res.decode_seconds * 1e3 / (WIDE_HEAD_GEN - 1):.3f} ms a step, flash launches {n_launch}",
+          flush=True)
+    smoke.check(n_launch == cfg.num_layers,
+                f"{cfg.name} text stack: flash_attn launched {n_launch} times, want {cfg.num_layers}")
+    flash_on_captured(qkv, f"{cfg.name} text stack")
+    lm_vs_reference(smoke, {"cfg": cfg, "model": model, "prompts": prompts},
+                    rtol=SHALLOW_LOGIT_RTOL[cfg.dtype])
+    return {"launches": n_launch, "qkv": qkv}
 
 
 def small_agreement(smoke: Smoke, dev) -> None:
@@ -1078,23 +1169,24 @@ def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
 
 
 # full attention layers of the repo's configs at the LM cell's batch and
-# prompt (B = 4, S = 2048, causal) that the main path does not run: (case,
-# Hq, Hkv, D, dtype, where its launches are counted). D = 96 and 80 run the
-# main path's tensor-core instance (head dim padded to 128); D = 32 the
-# reduced configs' instances, whose serve counts them
+# prompt (B = 4, S = 2048, causal) on random inputs: (case, Hq, Hkv, D,
+# dtype, the serve whose launches of the same kernel instance the row
+# reports). D = 80 runs flash_tc_kernel<128, false>, as the phi-3 text
+# stack's D = 96 does; D = 32 runs the reduced configs' instances
+# (flash_tc_kernel<64, false> in bf16, the CUDA-core kernel at width 32 in
+# float32)
 FLASH_LAYERS = [
-    ("phi-3-vision-4.2b layer", 32, 32, 96, torch.bfloat16, "main"),
-    ("zamba2-2.7b shared attention layer", 32, 32, 80, torch.bfloat16, "main"),
+    ("zamba2-2.7b shared attention layer", 32, 32, 80, torch.bfloat16, "wide"),
     ("head dim 32 (reduced configs), bf16", 32, 32, 32, torch.bfloat16, "bfloat16"),
     ("head dim 32 (reduced configs), float32", 32, 32, 32, torch.float32, "float32"),
 ]
 
 
-def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None") -> None:
+def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict) -> None:
     """flash_attn against its plain version (at the kernel's k tile) on
-    layer 0's q, k, v from the prefill, on small cases of every mask kind at
-    the configs' head dims, and at the full layer shapes of
-    :data:`FLASH_LAYERS`; times kernel, plain version and
+    layer 0's q, k, v from the llama and phi-3 prefills, on small cases of
+    every mask kind at the configs' head dims, and at the full layer shapes
+    of :data:`FLASH_LAYERS`; times kernel, plain version and
     scaled_dot_product_attention (a yardstick, never called by the port)."""
     import torch.nn.functional as F
 
@@ -1110,11 +1202,7 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None") -> None:
         print(f"  flash_attn tensor-core instructions (cuobjdump -sass): {counts}")
         smoke.check(counts["HGMMA"] + counts["HMMA"] > 0, "flash_attn: no tensor-core instruction")
 
-    q, k, v = lm["qkv"]  # (B, Hq, S, D), (B, Hkv, S, D), as the model hands them over
-    b, hq, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    qf, kf, vf = q.reshape(b * hq, sq, d), k.reshape(b * hkv, skv, d), v.reshape(b * hkv, skv, d)
-
+    q = lm["qkv"][0]
     gen = torch.Generator().manual_seed(0)
     dims = {torch.float32: (32, 64, 80, 96, 128), torch.bfloat16: (32, 80, 96, 72, 20)}
     for dtype, dd in [(t, dd) for t, ds in dims.items() for dd in ds]:
@@ -1163,18 +1251,22 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None") -> None:
                    PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S,
                    case=case, head_dim=dd, dtype=str(dtype).replace("torch.", ""), **extra)
 
-    flash_row(f"{LM_ARCH} layer 0 of the prefill", qf, kf, vf, q, k, v, lm["launches"])
+    # (B, Hq, S, D), (B, Hkv, S, D), as the model hands them over
+    flash_row(f"{LM_ARCH} layer 0 of the prefill", *fold_qkv(*lm["qkv"]), *lm["qkv"],
+              lm["launches"])
+    wide_serve = f"LM serve {WIDE_HEAD_ARCH} text stack, {WIDE_HEAD_LAYERS} layers"
+    flash_row(f"{WIDE_HEAD_ARCH} text stack, layer 0 of the prefill", *fold_qkv(*wide["qkv"]),
+              *wide["qkv"], wide["launches"], launches_counted_in=wide_serve)
     for case, hq_, hkv_, dd, dtype, counted_in in FLASH_LAYERS:
         q4 = torch.randn((LM_BATCH, hq_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
         k4, v4 = (torch.randn((LM_BATCH, hkv_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
                   for _ in "kv")
-        if counted_in == "main":
-            launches, where = lm["launches"], f"LM serve {LM_ARCH} (the same tensor-core instance)"
+        if counted_in == "wide":
+            launches, where = wide["launches"], f"{wide_serve} (head dim 96, the same instance)"
         else:
             launches = (reduced or {}).get(counted_in, 0)
             where = f"LM serve reduced {LM_ARCH}, {counted_in}"
-        flash_row(case, q4.reshape(-1, LM_PROMPT, dd), k4.reshape(-1, LM_PROMPT, dd),
-                  v4.reshape(-1, LM_PROMPT, dd), q4, k4, v4, launches, launches_counted_in=where)
+        flash_row(case, *fold_qkv(q4, k4, v4), q4, k4, v4, launches, launches_counted_in=where)
 
 
 def finish(smoke: Smoke) -> int:

@@ -34,7 +34,8 @@ from .kernel import check_planes, spmv_ell_plain
 
 @dataclasses.dataclass(frozen=True)
 class StripeBucket:
-    """Stripes of equal padded width: one product of the plain loop each."""
+    """Stripes of equal padded width, as the JAX package's plan holds them;
+    derived from the width table on demand (:attr:`StripePlan.buckets`)."""
 
     k: int  # padded width every row in this bucket is sliced to
     rows: np.ndarray  # global row ids, concatenated stripe ranges (int32)
@@ -47,7 +48,6 @@ class StripePlan:
     block_rows: int
     n_rows: int
     k_full: int
-    buckets: tuple[StripeBucket, ...]
     widths: np.ndarray  # (n_stripes,) int32: the slots stripe s reads
     # widths as an int32 tensor per device, uploaded at first use
     _device_widths: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
@@ -55,7 +55,19 @@ class StripePlan:
     @property
     def padded_slots(self) -> int:
         """Σ rows·K_stripe — the slots the striped kernels execute."""
-        return sum(b.k * len(b.rows) for b in self.buckets)
+        starts = self.block_rows * np.arange(len(self.widths), dtype=np.int64)
+        rows = np.minimum(self.block_rows, self.n_rows - starts)
+        return int((rows * self.widths).sum())
+
+    @property
+    def buckets(self) -> tuple[StripeBucket, ...]:
+        """The stripes grouped by width, in ascending width, each bucket's
+        row ids in ascending order: the JAX package's plan."""
+        width_of_row = np.repeat(self.widths, self.block_rows)[: self.n_rows]
+        return tuple(
+            StripeBucket(k=int(k_s), rows=np.flatnonzero(width_of_row == k_s).astype(np.int32))
+            for k_s in np.unique(self.widths)
+        )
 
     @property
     def waste_ratio(self) -> float:
@@ -85,24 +97,17 @@ def _pow2_at_least(v: int) -> int:
 
 
 def build_stripe_plan(cols, block_rows: int = 256) -> StripePlan:
-    """One numpy pass over concrete ``cols`` (a tensor or an array): stripe
-    widths, power-of-two bucketing, row-id concatenation per bucket."""
+    """One numpy pass over concrete ``cols`` (a tensor or an array): each
+    stripe's width, rounded up to a power of two."""
     c = to_numpy(cols) if isinstance(cols, torch.Tensor) else np.asarray(cols)
     r, k = c.shape
     block = max(1, min(block_rows, r))
     row_widths = _row_widths(c)
     widths = np.zeros(ceil_div(r, block), dtype=np.int32)
-    by_k: dict[int, list[np.ndarray]] = {}
     for s in range(len(widths)):
-        lo, hi = s * block, min((s + 1) * block, r)
-        w = int(row_widths[lo:hi].max(initial=0))
-        k_s = widths[s] = min(k, _pow2_at_least(w)) if w > 0 else 0
-        by_k.setdefault(k_s, []).append(np.arange(lo, hi, dtype=np.int32))
-    buckets = tuple(
-        StripeBucket(k=k_s, rows=np.concatenate(ranges))
-        for k_s, ranges in sorted(by_k.items())
-    )
-    return StripePlan(block_rows=block, n_rows=r, k_full=k, buckets=buckets, widths=widths)
+        w = int(row_widths[s * block:(s + 1) * block].max(initial=0))
+        widths[s] = min(k, _pow2_at_least(w)) if w > 0 else 0
+    return StripePlan(block_rows=block, n_rows=r, k_full=k, widths=widths)
 
 
 def spmv_stripes_plain(
@@ -111,11 +116,12 @@ def spmv_stripes_plain(
     """The JAX package's loop: per width bucket, gather its rows' first k
     slots, take the ELL product, scatter into y."""
     y = torch.zeros(plan.n_rows, dtype=vals.dtype, device=vals.device)
-    for bucket in plan.buckets:
-        if bucket.k == 0:
+    width_of_row = plan.widths_on(cols.device).repeat_interleave(plan.block_rows)[: plan.n_rows]
+    for k_s in np.unique(plan.widths).tolist():
+        if k_s == 0:
             continue  # all-empty stripes: y stays 0
-        rows = torch.as_tensor(bucket.rows, device=cols.device).long()
-        y[rows] = spmv_ell_plain(cols[rows, : bucket.k], vals[rows, : bucket.k], x)
+        rows = torch.nonzero(width_of_row == k_s).squeeze(1)
+        y[rows] = spmv_ell_plain(cols[rows, :k_s], vals[rows, :k_s], x)
     return y
 
 
