@@ -26,6 +26,16 @@ result, without them or outside a checkout of the repository. In order:
    ``engine.run`` on ``cuda``, held equal to ``local``, with the kernel
    timed there and its registers and spills printed (``cuobjdump
    -res-usage``);
+3a. serves the main path through ``EngineService`` on ``cuda`` (phase
+   "serving plane"): 24 requests rotating over the six signatures of 3, in
+   batch mode and in the worker loop at 1, 2 and 4 workers (each worker on
+   a CUDA stream of its own) under jittered open-loop arrivals at twice the
+   rate one worker sustains; every result ``torch.equal`` to ``engine.run``,
+   the kernels' launches through the service equal to ``engine.run``'s, a
+   ``service {...}`` line per width (requests/s, latency percentiles,
+   occupancy, steals); then a request whose inputs the default stream is
+   still writing, dedup of 8 identical requests (with the content hash's
+   host time), a rejected burst, a shed deadline and ``autotune=True``;
 4. autotunes on the card (phase "autotune + calibration (cuda)"): ranks
    SpMV and BFS (probes of the top 3) and GSANA (a probe of the top 1) on
    the same inputs with the uncalibrated profile, runs ``strategy="auto"``
@@ -120,6 +130,9 @@ REDUCED_BATCH, REDUCED_PROMPT, REDUCED_GEN = 4, 256, 8
 # at the LM's batch and prompt: the path that runs flash_attn's tensor-core
 # instance for head dims below 128 (flash_tc_kernel<128, false>)
 WIDE_HEAD_ARCH, WIDE_HEAD_LAYERS, WIDE_HEAD_GEN = "phi-3-vision-4.2b", 2, 8
+# the serving phase: requests of the mixed stream (the six main-path
+# signatures in turn) and the executor-pool widths it is served at
+SERVE_REQUESTS, SERVE_WORKERS = 24, (1, 2, 4)
 
 
 def card_line() -> str:
@@ -207,6 +220,7 @@ def main() -> int:
         return finish(smoke)
     launches = smoke.phase("main path through engine.run on the cuda substrate",
                            main_path, smoke, inputs)
+    smoke.phase("serving plane (EngineService on cuda)", serving_path, smoke, inputs)
     smoke.phase("CSR-stripe SpMV through spmv(variant='stripe'), timed", stripe_path, smoke,
                 inputs)
     smoke.phase(f"GSANA at a coarse grid (pick_grid(n, {COARSE_BUCKET})) through engine.run, "
@@ -342,6 +356,215 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
     for name, count in launches.items():
         smoke.check(count > 0, f"kernel {name} was never launched on the main path")
     return launches
+
+
+def serve_signatures(inputs: dict) -> list:
+    """The six main-path signatures ``(op, inputs, strategy)`` the serving
+    phase rotates over: SpMV with S1 on and off, BFS remote_write and
+    migrate, GSANA HCB/PAIR and BLK/PAIR."""
+    from repro_torch.core import Comm, Layout, MigratoryStrategy, Scheme
+
+    return [
+        ("spmv", inputs["spmv"], MigratoryStrategy()),
+        ("spmv", inputs["spmv"], MigratoryStrategy(replicate_x=False)),
+        ("bfs", inputs["bfs"], MigratoryStrategy(comm=Comm.REMOTE_WRITE)),
+        ("bfs", inputs["bfs"], MigratoryStrategy(comm=Comm.MIGRATE)),
+        ("gsana", inputs["gsana"], MigratoryStrategy(layout=Layout.HCB, scheme=Scheme.PAIR)),
+        ("gsana", inputs["gsana"], MigratoryStrategy(layout=Layout.BLK, scheme=Scheme.PAIR)),
+    ]
+
+
+def same_result(got, want) -> bool:
+    if isinstance(want, tuple):
+        return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+    return torch.equal(got, want)
+
+
+def serving_path(smoke: Smoke, inputs: dict) -> None:
+    """The main path served by ``EngineService`` on the cuda substrate: batch
+    mode, the worker loop at each width of ``SERVE_WORKERS`` under open-loop
+    arrivals (every result ``torch.equal`` to ``engine.run``, every kernel
+    launched through the service, counted exactly), a request whose inputs
+    are still being written on the default stream when it is submitted,
+    dedup and coalescing (with the content hash's host time), admission
+    rejection, a deadline, and ``autotune=True``."""
+    from repro_torch.engine import (
+        AdmissionError, CudaSubstrate, EngineService, PlanCache, Request, ServiceTimeout,
+        SpMVInputs, choose_strategy, run, strategy_dict,
+    )
+    from repro_torch.engine.service import _content_hash
+    from repro_torch.kernels.bfs.kernel import bfs_expand
+    from repro_torch.kernels.spmv.kernel import spmv_ell
+    from repro_torch.kernels.topk_sim.kernel import topk_sim
+
+    dev = inputs["spmv"].x.device
+    sub = CudaSubstrate(dev)
+    kernels = (spmv_ell, bfs_expand, topk_sim)
+    sigs = serve_signatures(inputs)
+    order = [i % len(sigs) for i in range(SERVE_REQUESTS)]
+
+    def launches_of(body):
+        for k in kernels:
+            k.launches = 0
+        out = body()
+        return out, {k.__name__: k.launches for k in kernels}
+
+    # engine.run of each signature: the results to hold the service to, and
+    # the launches one call of it makes
+    want, per_call = [], []
+    for op, inp, st in sigs:
+        (result, _), counts = launches_of(lambda: run(Request(op, inp, st, sub), iters=1, warmup=0))
+        want.append(result)
+        per_call.append(counts)
+    expected = {k.__name__: sum(per_call[i][k.__name__] for i in order) for k in kernels}
+
+    def check_results(responses, what):
+        for i, resp in zip(order, responses):
+            smoke.check(resp.report.substrate == "cuda", f"{what}: served on {resp.report.substrate}")
+            smoke.check(same_result(resp.result, want[i]),
+                        f"{what}: request {resp.ticket} ({sigs[i][0]}) differs from engine.run")
+
+    # batch mode: one compile per plan key, results equal to engine.run
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev)
+    for i in order:
+        svc.submit(Request(*sigs[i]))
+    responses, counts = launches_of(svc.drain)
+    stats = svc.stats()
+    check_results(responses, "batch")
+    smoke.check(stats.compiles == len(sigs) and stats.cache_hits == SERVE_REQUESTS - len(sigs),
+                f"batch: {stats.compiles} compiles, {stats.cache_hits} hits")
+    smoke.check(counts == expected, f"batch launches {counts}, expected {expected}")
+    mean_s = stats.run_seconds / max(1, stats.cache_hits)
+    rate = 2.0 / mean_s  # twice what one worker sustains, so queues form
+    print(f"  batch: {stats.requests} requests, {stats.compiles} compiles, "
+          f"{stats.wall_seconds * 1e3:.3f} ms, mean warm request {mean_s * 1e3:.4f} ms; "
+          f"launches {counts}; open-loop rate {rate:.1f} req/s", flush=True)
+
+    # the worker loop at each pool width, open-loop jittered arrivals
+    for workers in SERVE_WORKERS:
+        rng = np.random.default_rng(0)
+        svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=workers,
+                            qos={"bfs": 2.0}, batch_window=0.02)
+
+        def serve():
+            svc.start()
+            try:
+                futures = []
+                for i in order:
+                    futures.append(svc.submit(Request(*sigs[i])))
+                    time.sleep((0.5 + rng.random()) / rate)
+                return [f.result(timeout=600) for f in futures]
+            finally:
+                svc.stop(timeout=600)
+
+        responses, counts = launches_of(serve)
+        check_results(responses, f"W={workers}")
+        stats = svc.stats()
+        smoke.check(stats.errors == 0 and stats.requests == SERVE_REQUESTS,
+                    f"W={workers}: {stats.errors} errors, {stats.requests} requests")
+        smoke.check(counts == expected, f"W={workers}: launches {counts}, expected {expected}")
+        by_op: dict[str, list[float]] = {}
+        for resp in responses:
+            by_op.setdefault(resp.report.op, []).append(resp.report.seconds * 1e3)
+        report = svc.throughput_report()
+        print("  service " + json.dumps({
+            "workers": workers, "requests": stats.requests, "rate_offered": rate,
+            "requests_per_second": stats.requests_per_second,
+            "total_p50_ms": stats.total_p50 * 1e3, "total_p99_ms": stats.total_p99 * 1e3,
+            "queue_wait_p50_ms": stats.queue_wait_p50 * 1e3,
+            "queue_wait_p99_ms": stats.queue_wait_p99 * 1e3,
+            "service_p50_ms": stats.service_p50 * 1e3, "service_p99_ms": stats.service_p99 * 1e3,
+            "seconds_p50_ms": {op: float(np.median(v)) for op, v in by_op.items()},
+            "worker_occupancy": stats.worker_occupancy, "worker_requests": stats.worker_requests,
+            "steals": stats.steals, "compiles": stats.compiles,
+            "compile_ms": stats.compile_seconds * 1e3, "overlap_ms": stats.overlap_seconds * 1e3,
+            "overlap_ratio": stats.overlap_ratio, "busy_ms": stats.busy_seconds * 1e3,
+            "wall_ms": stats.wall_seconds * 1e3, "launches": counts,
+            "cache_hits": report["cache"]["hits"]}), flush=True)
+
+    # inputs still being written on the default stream when submitted: the
+    # slot's stream waits for them (a queued sleep holds the default stream)
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=2).start()
+    try:
+        svc.submit(Request(*sigs[0])).result(timeout=600)  # warm the plan
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of the default stream
+        x2 = inputs["spmv"].x * 2.0
+        fut = svc.submit(Request("spmv", SpMVInputs(inputs["spmv"].a, x2), sigs[0][2]))
+        got = fut.result(timeout=600).result
+    finally:
+        svc.stop(timeout=600)
+    torch.cuda.synchronize()
+    want_x2, _ = run(Request("spmv", SpMVInputs(inputs["spmv"].a, x2), sigs[0][2], sub),
+                     iters=1, warmup=0)
+    smoke.check(torch.equal(got, want_x2), "inputs written on the default stream: the served "
+                "result differs (the slot's stream did not wait for them)")
+
+    # dedup: 8 identical SpMV submissions, one execution
+    hash_ms = {}
+    for op in ("spmv", "bfs", "gsana"):
+        t0 = time.perf_counter()
+        _content_hash(op, inputs[op], None, sub)
+        hash_ms[op] = (time.perf_counter() - t0) * 1e3
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=2, dedup=True,
+                        batch_window=0.05).start()
+    try:
+        futures = [svc.submit(Request(*sigs[0])) for _ in range(8)]
+        results = [f.result(timeout=600).result for f in futures]
+    finally:
+        svc.stop(timeout=600)
+    stats = svc.stats()
+    smoke.check(stats.compiles + stats.cache_hits == 1 and stats.dedup_hits == 7,
+                f"dedup: {stats.compiles + stats.cache_hits} executions, {stats.dedup_hits} dedup hits")
+    smoke.check(all(same_result(r, want[0]) for r in results), "dedup: results differ")
+    print(f"  dedup: 8 submissions, {stats.compiles + stats.cache_hits} execution, "
+          f"{stats.dedup_hits} deduped ({stats.dedup_coalesced} coalesced in flight); content "
+          f"hash ms on the host: {json.dumps(hash_ms)}", flush=True)
+
+    # admission: a burst of 16 into a depth-2 rejecting queue
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=2,
+                        admission="reject", max_queue_depth=2).start()
+    admitted, rejected = [], 0
+    try:
+        for i in range(16):
+            try:
+                admitted.append((i % len(sigs), svc.submit(Request(*sigs[i % len(sigs)]))))
+            except AdmissionError:
+                rejected += 1
+        answered = [(i, f.result(timeout=600).result) for i, f in admitted]
+    finally:
+        svc.stop(timeout=600)
+    smoke.check(rejected > 0 and rejected == svc.stats().rejected,
+                f"admission: {rejected} rejected, stats {svc.stats().rejected}")
+    smoke.check(all(same_result(r, want[i]) for i, r in answered),
+                "admission: an admitted request was answered wrongly")
+    print(f"  admission: burst of 16, depth 2: {len(answered)} admitted and answered, "
+          f"{rejected} rejected", flush=True)
+
+    # a deadline: timeout=0 queued behind a GSANA request is shed
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev).start()
+    try:
+        slow = svc.submit(Request(*sigs[4]))
+        late = svc.submit(Request(*sigs[0], timeout=0.0))
+        slow.result(timeout=600)
+        shed = isinstance(late.exception(timeout=600), ServiceTimeout)
+    finally:
+        svc.stop(timeout=600)
+    smoke.check(shed and svc.stats().timed_out == 1, "deadline: the late request was not shed")
+    print(f"  deadline: timeout=0 behind GSANA shed with ServiceTimeout "
+          f"(timed_out {svc.stats().timed_out})", flush=True)
+
+    # autotune=True: the scheduler's picks against the serial choose_strategy
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=2,
+                        autotune=True).start()
+    try:
+        futures = {op: svc.submit(Request(op, inputs[op])) for op in ("spmv", "bfs", "gsana")}
+        picks = {op: f.result(timeout=600).report.strategy for op, f in futures.items()}
+    finally:
+        svc.stop(timeout=600)
+    for op, pick in picks.items():
+        serial = strategy_dict(choose_strategy(op, inputs[op], sub))
+        print(f"  autotune service {op}: {pick} (serial choose_strategy: "
+              f"{'same' if pick == serial else serial})", flush=True)
 
 
 def bfs_frontiers(g) -> list:

@@ -219,6 +219,7 @@ def compute_similarity(
 
 def recall_at_k(cand, pi: np.ndarray) -> float:
     """Fraction of v ∈ V2 whose ground-truth partner is among its candidates."""
+    pi = to_numpy(pi) if isinstance(pi, torch.Tensor) else np.asarray(pi)
     truth = np.empty(len(pi), dtype=np.int64)  # truth[v2] = v1
     truth[pi] = np.arange(len(pi))
     cand = to_numpy(cand) if isinstance(cand, torch.Tensor) else np.asarray(cand)

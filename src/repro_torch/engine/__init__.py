@@ -7,6 +7,10 @@ accounting and an explicit plan -> compile -> execute pipeline.
     y, report = run(Request("spmv", SpMVInputs(a, x), "auto", "cuda"))  # autotuned
     print(report.to_json())
 
+    svc = EngineService(substrate="cuda", workers=2).start()   # the serving plane
+    resp = svc.submit(Request("spmv", SpMVInputs(a, x))).result(timeout=60)
+    svc.stop()
+
 Ops and substrates meet only in the kernel registry
 (:mod:`repro_torch.engine.registry`); :func:`capabilities` is the table of
 who runs what.
@@ -40,9 +44,23 @@ from .ops import (
     SpMVOp,
 )
 from .probes import ProbeStore, default_probe_store
-from .registry import KernelRegistry, OpSpec, capabilities, default_registry, kernel, register_op
+from .registry import (
+    KernelRegistry, OpSpec, capabilities, default_registry, kernel, placement_table, register_op,
+)
 from .request import Request
-from .runner import build_plan, compile_plan, execute, resolve_op, run, run_plan, run_request
+from .runner import (
+    build_plan, compile_plan, execute, resolve_op, run, run_plan, run_request, single_call,
+)
+from .service import (
+    AdmissionError,
+    EngineService,
+    ServiceFuture,
+    ServiceRequest,
+    ServiceResponse,
+    ServiceStats,
+    ServiceStopped,
+    ServiceTimeout,
+)
 from .substrate import (
     CudaSubstrate,
     LocalSubstrate,
@@ -51,15 +69,29 @@ from .substrate import (
     list_substrates,
     register_substrate,
 )
+from .wire import (
+    WIRE_VERSION,
+    SegmentTable,
+    WireError,
+    canonical_bytes,
+    collect_blob_digests,
+    content_digest,
+    decode_value,
+    encode_value,
+)
 
 __all__ = [
-    "AutotuneResult", "BFSInputs", "BFSOp", "CUDA_BLOCK_CANDIDATES", "CompiledPlan",
-    "CudaSubstrate", "ExecutionPlan", "GRAIN_CANDIDATES", "GSANAInputs", "GSANAOp",
-    "KernelRegistry", "LocalSubstrate", "MigratoryOp", "OpNotSupportedError", "OpSpec",
-    "PlanCache", "ProbeStore", "RankedCandidate", "Request", "RunReport", "SpMVInputs",
-    "SpMVOp", "Substrate", "args_signature", "autotune", "build_plan", "candidate_grid",
-    "capabilities", "choose_strategy", "compile_plan", "default_cache", "default_probe_store",
-    "default_registry", "execute", "get_substrate", "kernel", "list_substrates", "plan_key",
-    "rank_strategies", "register_op", "register_substrate", "resolve_op", "run", "run_plan",
-    "run_request", "strategy_dict",
+    "AdmissionError", "AutotuneResult", "BFSInputs", "BFSOp", "CUDA_BLOCK_CANDIDATES",
+    "CompiledPlan", "CudaSubstrate", "EngineService", "ExecutionPlan", "GRAIN_CANDIDATES",
+    "GSANAInputs", "GSANAOp", "KernelRegistry", "LocalSubstrate", "MigratoryOp",
+    "OpNotSupportedError", "OpSpec", "PlanCache", "ProbeStore", "RankedCandidate", "Request",
+    "RunReport", "SegmentTable", "ServiceFuture", "ServiceRequest", "ServiceResponse",
+    "ServiceStats", "ServiceStopped", "ServiceTimeout", "SpMVInputs", "SpMVOp", "Substrate",
+    "WIRE_VERSION", "WireError", "args_signature", "autotune", "build_plan", "candidate_grid",
+    "canonical_bytes", "capabilities", "choose_strategy", "collect_blob_digests",
+    "compile_plan", "content_digest", "decode_value", "default_cache", "default_probe_store",
+    "default_registry", "encode_value", "execute", "get_substrate", "kernel",
+    "list_substrates", "placement_table", "plan_key", "rank_strategies", "register_op",
+    "register_substrate", "resolve_op", "run", "run_plan", "run_request", "single_call",
+    "strategy_dict",
 ]

@@ -18,9 +18,12 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 from .api import OpNotSupportedError
+
+if TYPE_CHECKING:
+    import torch
 
 # A kernel is a plain function: (substrate, *args, **statics) -> result.
 Kernel = Callable[..., Any]
@@ -143,3 +146,21 @@ def capabilities() -> dict[str, dict[str, bool]]:
         op_name: {name: reg.has_kernel(op_name, cls.kind) for name, cls in substrate_classes().items()}
         for op_name in reg.ops()
     }
+
+
+def placement_table(device: "str | torch.device" = "cuda") -> dict[str, dict[str, Any]]:
+    """The placement view the service's executor pool routes by: for every
+    registered substrate built on ``device``, its kernel-lookup kind, its
+    placement policy (``"spread"`` = round-robin + work stealing,
+    ``"affinity"`` = a plan-key group pins to one slot) and how many
+    independent execution slots it drives (``placement_slots()``: CUDA
+    streams on the card, cores on the CPU). ``workers="auto"`` services
+    size their pools from it."""
+    from .substrate import substrate_classes
+
+    table: dict[str, dict[str, Any]] = {}
+    for name, cls in substrate_classes().items():
+        sub = cls(device)
+        table[name] = {"kind": sub.kind, "policy": sub.placement_policy,
+                       "slots": sub.placement_slots()}
+    return table

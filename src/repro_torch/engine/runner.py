@@ -12,10 +12,14 @@ The stages are individually exposed:
   (``iters=3, warmup=1``) report *steady-state* medians with the first call
   of a new executor (kernel builds included) split into
   ``RunReport.compile_seconds``; ``iters=1, warmup=0`` times one cold call.
+- :func:`single_call` — one timed call through the cache: the unit of work
+  of the service's pipeline stages.
 
-A timed call ends in ``torch.cuda.synchronize()`` when its result lies on
-the card, so ``seconds`` is device time plus host overhead, never just the
-time to enqueue.
+A timed call ends in a synchronize of the *current stream* when its result
+lies on the card, so ``seconds`` is the call's device time plus host
+overhead, never just the time to enqueue — and never another stream's
+work: the service runs each pool slot on a stream of its own, and a slot's
+``seconds`` must not include the kernels of the other slots.
 """
 from __future__ import annotations
 
@@ -74,17 +78,22 @@ def build_plan(
     return op.plan(inputs, resolve_strategy(op, inputs, strategy, sub), sub)
 
 
-def compile_plan(plan: ExecutionPlan, cache: PlanCache | None = None) -> CompiledPlan:
-    """Stage 2: resolve the plan's executor through the cache."""
-    return (default_cache() if cache is None else cache).get(plan)
+def compile_plan(
+    plan: ExecutionPlan, cache: PlanCache | None = None, *, slot: "int | None" = None,
+) -> CompiledPlan:
+    """Stage 2: resolve the plan's executor through the cache. ``slot``
+    tags the entry with the executor-pool slot doing the resolving
+    (placement pinning)."""
+    return (default_cache() if cache is None else cache).get(plan, slot=slot)
 
 
 def _block(result: Any) -> Any:
-    """Wait for the card when the result lies on it (the counterpart of
-    ``jax.block_until_ready``)."""
+    """Wait for the current stream when the result lies on the card (the
+    counterpart of ``jax.block_until_ready``). Only that stream: other
+    streams' work is not this call's."""
     first = result[0] if isinstance(result, tuple) else result
     if isinstance(first, torch.Tensor) and first.is_cuda:
-        torch.cuda.synchronize(first.device)
+        torch.cuda.current_stream(first.device).synchronize()
     return result
 
 
@@ -133,6 +142,31 @@ def execute(
     return result, timed[len(timed) // 2], compile_seconds
 
 
+def single_call(
+    plan: ExecutionPlan,
+    op: MigratoryOp,
+    *,
+    cache: PlanCache | None = None,
+    slot: "int | None" = None,
+) -> tuple[Any, RunReport]:
+    """One timed call through the cache — the unit of work of the
+    service's pipeline stages.
+
+    On a *cold* plan this call is the **compile** stage: its one timed call
+    is the executor's first (kernel builds included), and the report
+    carries ``cache_hit=False, seconds == compile_seconds``. On a *warm*
+    plan it is the **execute** stage: a steady-state call with
+    ``cache_hit=True, compile_seconds=0.0``. Each request still runs
+    exactly the call sequence the synchronous path would have run, so the
+    service's results equal ``run``'s.
+
+    ``slot`` is the placement tag: the executor-pool worker making the
+    call. A first call pins the cache entry to it; a stolen execution
+    passes its own slot but the pin stays where it was.
+    """
+    return run_plan(plan, op, iters=1, warmup=0, cache=cache, slot=slot)
+
+
 def run_plan(
     plan: ExecutionPlan,
     op: MigratoryOp,
@@ -140,9 +174,10 @@ def run_plan(
     iters: int = 3,
     warmup: int = 1,
     cache: PlanCache | None = None,
+    slot: "int | None" = None,
 ) -> tuple[Any, RunReport]:
     """Compile + execute an already-built plan and assemble its RunReport."""
-    compiled = compile_plan(plan, cache)
+    compiled = compile_plan(plan, cache, slot=slot)
     result, seconds, compile_seconds = execute(compiled, iters=iters, warmup=warmup, cache=cache)
     report = RunReport.from_parts(
         op=op.name,

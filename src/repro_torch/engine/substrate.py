@@ -17,10 +17,18 @@ asking for CUDA without a card raises) and accepts only inputs that lie on
 it. A ``cuda`` substrate on the CPU runs each kernel's plain PyTorch
 version, because the kernel wrappers dispatch on the device of the tensors
 they are handed.
+
+Placement (the service's executor pool): a substrate advertises how many
+independent execution channels it can keep busy (:meth:`Substrate.placement_slots`),
+a :attr:`~Substrate.placement_policy` for routing plan-key groups onto pool
+workers, and a per-slot variant (:meth:`Substrate.placement_variant`). On
+the card a pool slot is a CUDA stream of its own, which the service owns;
+the substrate is shared by every slot.
 """
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable
 
 import torch
@@ -39,6 +47,14 @@ from .api import OpNotSupportedError
 from .registry import default_registry, kernel
 
 
+# pool slots a substrate on the card advertises: how many workers of the
+# service's executor pool, each on a CUDA stream of its own, one card keeps
+# usefully busy with this engine's requests. Two matched or beat one in
+# every measured burst and four lost to one: the requests are host time
+# (PERF.md, the W = 1, 2, 4 rows of chip_smoke.py and tools/serving_sweep.py)
+CUDA_STREAM_SLOTS = 2
+
+
 class Substrate:
     """Execution backend for MigratoryOps, bound to one device.
 
@@ -48,6 +64,10 @@ class Substrate:
 
     name: str = "abstract"
     kind: str = "abstract"
+    #: "spread": groups round-robin over pool workers and idle workers may
+    #: steal queued or straggling work. "affinity": a plan-key group is
+    #: pinned to one slot and never stolen.
+    placement_policy: str = "spread"
 
     def __init__(self, device: "str | torch.device" = "cuda"):
         self.device = resolve_device(device)
@@ -76,6 +96,24 @@ class Substrate:
         """Hashable identity for the plan cache: two substrate instances with
         equal fingerprints are interchangeable executors."""
         return (self.name, str(self.device))
+
+    def placement_slots(self) -> int:
+        """How many pool workers this substrate keeps independently busy;
+        ``workers="auto"`` sizes the pool to ``min(8, placement_slots())``.
+        On the card: :data:`CUDA_STREAM_SLOTS` streams. On the CPU: the
+        core count (executions from different workers overlap in PyTorch's
+        intra-op pool, and the operators release the interpreter lock)."""
+        if self.device.type == "cuda":
+            return CUDA_STREAM_SLOTS
+        return max(1, os.cpu_count() or 1)
+
+    def placement_variant(self, slot: int, n_slots: int) -> "Substrate":
+        """The substrate instance slot ``slot`` of ``n_slots`` plans
+        against: ``self``, since every slot shares one device. (A slot's
+        stream is the service's, not part of the fingerprint, so a
+        compiled entry serves every slot.)"""
+        del slot, n_slots
+        return self
 
 
 class LocalSubstrate(Substrate):

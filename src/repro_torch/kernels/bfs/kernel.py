@@ -19,7 +19,7 @@ import torch
 
 from ...core.bfs import UNVISITED, _expand_dense, global_rows
 from ..build import check, load, stream_of
-from ..runtime import on_card
+from ..runtime import count_launch, on_card
 
 
 def bfs_expand_plain(adj: torch.Tensor, frontier: torch.Tensor) -> torch.Tensor:
@@ -74,7 +74,7 @@ def bfs_expand(
     err = fn(adj.data_ptr(), frontier.data_ptr(), proposals.data_ptr(), p, vp, k, block,
              stream_of(adj))
     check(lib, err, "bfs_expand")
-    bfs_expand.launches += 1
+    count_launch(bfs_expand)
     return proposals
 
 

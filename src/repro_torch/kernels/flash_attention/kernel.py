@@ -22,7 +22,7 @@ import functools
 import torch
 
 from ..build import check, load, stream_of
-from ..runtime import on_card
+from ..runtime import count_launch, on_card
 
 #: the largest head dim the kernels take (the CUDA-core kernel's widest tile)
 MAX_HEAD_DIM = 256
@@ -142,7 +142,7 @@ def flash_attn(
     err = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              bhq, bhkv, sq, skv, d, int(causal), w, float(scale), stream_of(o))
     check(lib, err, "flash_attn")
-    flash_attn.launches += 1
+    count_launch(flash_attn)
     return o
 
 

@@ -14,7 +14,7 @@ import functools
 import torch
 
 from ..build import check, load, stream_of
-from ..runtime import on_card
+from ..runtime import count_launch, on_card
 
 
 def spmv_ell_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +61,7 @@ def spmv_ell(
     err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(), r, k,
              x.shape[0], block, stream_of(y))
     check(lib, err, "spmv_ell")
-    spmv_ell.launches += 1
+    count_launch(spmv_ell)
     return y
 
 

@@ -28,7 +28,7 @@ import torch
 from ...core.util import ceil_div
 from ...device import to_numpy
 from ..build import check, load, stream_of
-from ..runtime import on_card
+from ..runtime import count_launch, on_card
 from .kernel import check_planes, spmv_ell_plain
 
 
@@ -163,7 +163,7 @@ def spmv_ell_stripes(
     err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(), widths.data_ptr(),
              r, k, x.shape[0], plan.block_rows, stream_of(y))
     check(lib, err, "spmv_ell_stripes")
-    spmv_ell_stripes.launches += 1
+    count_launch(spmv_ell_stripes)
     return y
 
 

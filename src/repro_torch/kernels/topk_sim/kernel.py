@@ -18,7 +18,7 @@ import torch
 
 from ...core.gsana import NEG, sim_from_feats, task_chunk
 from ..build import check, load, stream_of
-from ..runtime import on_card
+from ..runtime import count_launch, on_card
 
 #: the most scored feature columns (5 + t1 + t2 + t3) the kernel takes: its
 #: wide instance keeps 40 rows of them in a block's 227 KB of shared memory
@@ -85,7 +85,7 @@ def topk_sim(
     err = fn(feat_v.data_ptr(), feat_u.data_ptr(), mask_v.data_ptr(), mask_u.data_ptr(),
              scores.data_ptr(), idx.data_ptr(), p, a, b, f, t1, t2, t3, k, stream_of(scores))
     check(lib, err, "topk_sim")
-    topk_sim.launches += 1
+    count_launch(topk_sim)
     return scores, idx
 
 

@@ -1,14 +1,32 @@
-"""Batched LM serving: prefill a batch of prompts, then greedy-decode.
+"""Serving entry points.
+
+LM path: prefill a batch of prompts, then greedy-decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 Weights are random, drawn from seed 0 on the device; prompts are numpy
-integers from seed 1. Runs on the card unless ``--device cpu``.
+integers from seed 1.
+
+Irregular-op path: drive an ``EngineService`` on the ``cuda`` substrate with a
+mixed SpMV/BFS request stream (autotuned strategies, one shared plan cache)
+and print its throughput report. ``--ops`` uses the batched drain;
+``--ops-async`` starts the worker loop (``--ops-workers`` executor slots, each
+on a CUDA stream of its own on the card) and feeds it from an *open-loop*
+generator: requests arrive at ``--ops-rate`` per second with jitter, whatever
+the service's progress, under ``--ops-admission block|reject``, with BFS at
+twice the QoS weight.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --ops --ops-requests 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --ops-async --ops-workers 2 \\
+        --ops-rate 100 --ops-admission reject [--device cpu]
+
+Every path runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import NamedTuple
 
@@ -60,6 +78,107 @@ def lm_serve(cfg: ModelConfig, model, prompts, gen: int, device="cuda") -> Serve
     return ServeResult(torch.cat(out, dim=1), t_prefill, t_decode)
 
 
+def _ops_workload(shapes: tuple[int, ...], seed: int, device):
+    """The demo's rotating problem signatures: a pool of SpMV problems
+    (``laplacian_2d`` of each shape, P=8) and one BFS graph
+    (``erdos_renyi_edges(9, 6)``, P=8, root 0), on ``device``."""
+    from ..core import partition_ell
+    from ..engine import BFSInputs, SpMVInputs
+    from ..sparse import edges_to_csr, erdos_renyi_edges, laplacian_2d, partition_graph
+
+    rng = np.random.default_rng(seed)
+    spmv_pool = []
+    for n in shapes:
+        a = laplacian_2d(n, device=device)
+        x = torch.as_tensor(rng.standard_normal(n * n).astype(np.float32), device=device)
+        spmv_pool.append(SpMVInputs(partition_ell(a, 8, device=device), x))
+    g = edges_to_csr(erdos_renyi_edges(9, 6, seed=seed), 512, device=device)
+    bfs_inputs = BFSInputs(partition_graph(g, 8, device=device), 0)
+
+    def pick(i: int):
+        if i % 3 == 2:
+            return "bfs", bfs_inputs
+        return "spmv", spmv_pool[i % len(spmv_pool)]
+
+    return pick
+
+
+def _print_summary(stats, n_requests: int) -> None:
+    print(f"served {stats.requests}/{n_requests} requests ({stats.rejected} rejected) "
+          f"in {stats.wall_seconds * 1e3:.0f} ms ({stats.requests_per_second:.0f} req/s)")
+    print(f"compiles: {stats.compiles} ({stats.compile_seconds * 1e3:.0f} ms), "
+          f"cache hits: {stats.cache_hits}, amortization: {stats.amortization:.1f} req/compile")
+
+
+def ops_demo(n_requests: int, shapes: tuple[int, ...] = (16, 24), seed: int = 0,
+             device="cuda") -> dict:
+    """Serve a mixed SpMV/BFS stream through the batched EngineService:
+    each drain compiles once per signature and serves the rest from the
+    plan cache."""
+    from ..engine import EngineService, Request
+
+    pick = _ops_workload(shapes, seed, device)
+    svc = EngineService(substrate="cuda", autotune=True, device=device)
+    for i in range(n_requests):
+        svc.submit(Request(*pick(i)))
+    svc.drain()
+    report = svc.throughput_report()
+    _print_summary(svc.stats(), n_requests)
+    print(json.dumps(report, default=str))
+    return report
+
+
+def ops_demo_async(
+    n_requests: int,
+    rate: float = 100.0,
+    admission: str = "block",
+    max_queue_depth: int = 64,
+    shapes: tuple[int, ...] = (16, 24),
+    seed: int = 0,
+    workers: "int | str" = 1,
+    device="cuda",
+) -> dict:
+    """Open-loop async serving: a generator submits at ``rate`` req/s
+    (jittered, never waiting for responses) while the worker pipeline
+    overlaps first calls with execution. BFS requests get a 2x QoS weight,
+    so mixed bursts schedule BFS groups first."""
+    from ..engine import AdmissionError, EngineService, Request
+
+    pick = _ops_workload(shapes, seed, device)
+    rng = np.random.default_rng(seed)
+    interval = 1.0 / rate if rate > 0 else 0.0
+    svc = EngineService(
+        substrate="cuda", autotune=True, device=device, workers=workers,
+        max_queue_depth=max_queue_depth, admission=admission, qos={"bfs": 2.0},
+        batch_window=0.02,
+    )
+    svc.start()
+    futures = []
+    try:
+        for i in range(n_requests):
+            try:
+                futures.append(svc.submit(Request(*pick(i))))
+            except AdmissionError:
+                pass  # open loop drops on the floor; counted in stats.rejected
+            if interval:
+                time.sleep(interval * (0.5 + rng.random()))  # jittered arrivals
+        for f in futures:
+            f.result(timeout=600)
+    finally:
+        svc.stop()
+    report = svc.throughput_report()
+    stats = svc.stats()
+    _print_summary(stats, n_requests)
+    print(f"overlap: {stats.overlap_seconds * 1e3:.0f} ms ({stats.overlap_ratio:.0%} of "
+          f"first-call time hidden under execution), busy {stats.busy_seconds * 1e3:.0f} / "
+          f"wall {stats.wall_seconds * 1e3:.0f} ms, queue hwm {stats.queue_depth_hwm}")
+    if stats.workers > 1:
+        print(f"pool: {stats.workers} workers, {stats.steals} steals, "
+              f"occupancy {[round(o, 2) for o in stats.worker_occupancy]}")
+    print(json.dumps(report, default=str))
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -69,7 +188,27 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ops", action="store_true",
+                    help="serve a mixed SpMV/BFS stream through the batched EngineService")
+    ap.add_argument("--ops-async", action="store_true",
+                    help="open-loop arrivals into the EngineService worker loop")
+    ap.add_argument("--ops-requests", type=int, default=24)
+    ap.add_argument("--ops-rate", type=float, default=100.0,
+                    help="open-loop arrival rate (req/s) for --ops-async")
+    ap.add_argument("--ops-admission", choices=("block", "reject"), default="block",
+                    help="admission policy when the async queue is full")
+    ap.add_argument("--ops-workers", default="1",
+                    help="executor-pool width for --ops-async (int or 'auto')")
     args = ap.parse_args(argv)
+
+    if args.ops_async:
+        workers = args.ops_workers if args.ops_workers == "auto" else int(args.ops_workers)
+        ops_demo_async(args.ops_requests, rate=args.ops_rate, admission=args.ops_admission,
+                       workers=workers, device=args.device)
+        return
+    if args.ops:
+        ops_demo(args.ops_requests, device=args.device)
+        return
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = api.init_params(cfg, seed=0, device=args.device)

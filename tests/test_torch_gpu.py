@@ -321,6 +321,46 @@ def test_engine_cuda_matches_local_on_the_card(cuda):
     assert rep.metrics["recall_at_k"] > 0.9
 
 
+def test_service_pool_on_the_card_equals_run(cuda):
+    """The mixed stream (SpMV S1 on/off, BFS both comms, GSANA HCB/BLK)
+    served by a two-worker pool on the card, each worker on a stream of its
+    own, equals sequential run bit for bit; every kernel launched through
+    the service."""
+    from repro_torch.engine import EngineService, PlanCache
+
+    a = TS.laplacian_2d(64, device=cuda)
+    x = torch.randn(a.n_cols, generator=torch.Generator().manual_seed(2)).to(cuda)
+    spmv_in = SpMVInputs(T.partition_ell(a, 8, device=cuda), x)
+    g = TS.partition_graph(TS.edges_to_csr(TS.erdos_renyi_edges(12, 8), 1 << 12, device=cuda),
+                           8, device=cuda)
+    vs1, vs2, _ = T.generate_alignment_pair(2048, seed=1, device=cuda)
+    grid = T.pick_grid(2048, 32)
+    cap = max(T.bucketize(vs1, grid, device=cuda).cap, T.bucketize(vs2, grid, device=cuda).cap)
+    gi = GSANAInputs(vs1, vs2, T.bucketize(vs1, grid, cap=cap, device=cuda),
+                     T.bucketize(vs2, grid, cap=cap, device=cuda))
+    sigs = [("spmv", spmv_in, T.MigratoryStrategy(replicate_x=r)) for r in (True, False)]
+    sigs += [("bfs", BFSInputs(g, 0), T.MigratoryStrategy(comm=c)) for c in T.Comm]
+    sigs += [("gsana", gi, T.MigratoryStrategy(layout=lay, scheme=T.Scheme.PAIR))
+             for lay in (T.Layout.HCB, T.Layout.BLK)]
+    sub = CudaSubstrate(cuda)
+    want = [run(Request(op, inp, st, sub), iters=1, warmup=0)[0] for op, inp, st in sigs]
+    counts = {k: k.launches for k in (spmv_ell, bfs_expand, topk_sim)}
+    svc = EngineService(cache=PlanCache(), substrate=sub, device=cuda, workers=2,
+                        qos={"bfs": 2.0}, batch_window=0.01).start()
+    try:
+        futures = [(i % 6, svc.submit(Request(*sigs[i % 6]))) for i in range(24)]
+        got = [(i, f.result(timeout=300).result) for i, f in futures]
+    finally:
+        svc.stop(timeout=300)
+    for i, result in got:
+        if isinstance(result, tuple):
+            assert all(torch.equal(r, w) for r, w in zip(result, want[i]))
+        else:
+            assert torch.equal(result, want[i])
+    assert all(k.launches > n for k, n in counts.items())
+    assert svc.stats().errors == 0 and svc.stats().workers == 2
+
+
 @pytest.fixture
 def no_machine_file(tmp_path, monkeypatch):
     """The uncalibrated profile and an empty probe store, whatever this host holds."""
