@@ -55,9 +55,28 @@ result, without them or outside a checkout of the repository. In order:
    bf16, the same way: flash launches counted, layer 0's q, k, v from the
    prefill held against the kernel's plain version, the logits held against
    the reference branch;
-6. holds the ``cuda`` substrate against the ``local`` one on small inputs;
+6. holds the ``cuda`` substrate against the ``local`` one on small inputs,
+   and ``moe_dispatch``/``moe_decode`` on the card against the CPU;
 7. profiles one request of each op, one LM prefill and one decode step
    (device busy time against wall time, kernel count, top kernels);
+7a. frees llama's weights and serves the MoE LM at the full width of
+   moonshot-v1-16b-a3b (48 layers, 64 experts top-6, bf16, 28.06e9 random
+   weights from seed 0 drawn on the card) through ``lm_serve`` with flash
+   attention: 4 prompts of 2048 tokens, 8 greedy tokens, 48 flash launches
+   a prefill (an ``lm {...}`` line); holds the flash prefill and 4
+   teacher-forced decode steps against the reference attention branch
+   (``LM_LOGIT_ATOL``; routing flips per layer between the branches and the
+   prefill's drop share printed; a 2-layer stack of the same width under
+   ``SHALLOW_LOGIT_RTOL`` where flips explain a full-depth difference),
+   profiles one prefill and one decode step; then runs ``moe_dispatch`` at
+   its layer width (x (8192, 2048) bf16, layer 0's experts) through
+   ``engine.run`` on ``LocalSubstrate`` in ep_push, ep_pull (P = 8) and tp,
+   each equal to ``moe_dispatch_reference``, its dropped slots to a plain
+   recount and its traffic to the replay's, ``"auto"`` a plan-cache hit, the
+   ``cuda`` substrate refusing the op; and ``DecodeServer`` through the
+   ``EngineService`` worker loop at W = 1 and 2 for serve-moe (float32) and
+   moonshot's one-block decode params (bf16, full width), every mode's
+   tokens equal to the oracle's (``decode {...}`` lines);
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -67,6 +86,7 @@ result, without them or outside a checkout of the repository. In order:
    them over, with its occupancy at the main path's grain and the sums of
    the round times and bounds; flash attention on layer 0's q, k, v
    captured from the prefill, on phi-3-vision-4.2b's layer 0 (head dim 96)
+   and moonshot-v1-16b-a3b's (head dim 128, 16 kv heads for 16 q heads)
    likewise, at full layer shapes of head dims 80 (zamba2-2.7b) and 32
    (bf16 and float32), each
    at its kernel's k tile, and on small cases of every mask kind at head
@@ -133,6 +153,15 @@ WIDE_HEAD_ARCH, WIDE_HEAD_LAYERS, WIDE_HEAD_GEN = "phi-3-vision-4.2b", 2, 8
 # the serving phase: requests of the mixed stream (the six main-path
 # signatures in turn) and the executor-pool widths it is served at
 SERVE_REQUESTS, SERVE_WORKERS = 24, (1, 2, 4)
+# the MoE LM served at full width (48 layers, 64 experts top-6, bf16) at the
+# LM's batch and prompt, greedy tokens; the depth of the stack the flash
+# and reference branches are held on instead if routing flips explain a
+# full-depth difference past LM_LOGIT_ATOL (fixed before the first run)
+MOE_ARCH, MOE_GEN, MOE_FALLBACK_LAYERS = "moonshot-v1-16b-a3b", 8, 2
+# DecodeServer: (config, nodelets of the ep modes) served in bf16 and
+# float32 as the configs give them; sequences, new tokens each, batch slots
+DECODE_CONFIGS = (("serve-moe", 4), ("moonshot-v1-16b-a3b", 8))
+DECODE_SEQS, DECODE_NEW, DECODE_CAPACITY = 8, 8, 8
 
 
 def card_line() -> str:
@@ -236,10 +265,31 @@ def main() -> int:
                        "reference attention branch", wide_head_lm_path, smoke, dev)
     smoke.phase("cuda vs local substrate on small inputs", small_agreement, smoke, dev)
     smoke.phase("device time per request (torch.profiler)", profile_requests, inputs, lm)
+    if lm is not None:  # later phases read only llama's captured q, k, v and launches
+        del lm["model"]
+    torch.cuda.empty_cache()
+    moe = smoke.phase(f"LM serve ({MOE_ARCH}, MoE, flash)", lm_serve_path, smoke, dev, MOE_ARCH,
+                      MOE_GEN)
+    if moe is not None:
+        smoke.phase(f"LM ({MOE_ARCH}) flash prefill and decode vs the reference attention branch, "
+                    "routing flips and drop share", moe_lm_vs_reference, smoke, moe)
+        smoke.phase(f"device time of one {MOE_ARCH} prefill and decode step (torch.profiler)",
+                    profile_moe_lm, moe)
+        # layer 0's experts stay for moe_dispatch; the rest of the stack goes
+        blk = moe.pop("model").blocks[0].moe
+        experts = tuple(w.detach() for w in (blk.w_gate, blk.w_up, blk.w_down))
+        del blk
+        torch.cuda.empty_cache()
+        smoke.phase("moe_dispatch through engine.run (moonshot layer width)", moe_dispatch_path,
+                    smoke, experts, dev)
+        del experts
+        torch.cuda.empty_cache()
+    smoke.phase("DecodeServer through EngineService", decode_server_path, smoke, dev)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None and wide is not None:
-        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced, wide)
+        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced, wide,
+                    moe)
     return finish(smoke)
 
 
@@ -786,7 +836,7 @@ def flash_on_captured(qkv: tuple, what: str) -> float:
     return err
 
 
-def lm_serve_path(smoke: Smoke, dev) -> dict:
+def lm_serve_path(smoke: Smoke, dev, arch: str = LM_ARCH, gen: int = LM_GEN) -> dict:
     """The LM's main path: ``lm_serve`` at the full width of the arch, flash
     attention at prefill, after a warm-up serve that captures layer 0's
     attention inputs for the kernel check."""
@@ -797,7 +847,7 @@ def lm_serve_path(smoke: Smoke, dev) -> dict:
     from repro_torch.launch.serve import lm_serve
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     t0 = time.perf_counter()
     model = api.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -807,13 +857,13 @@ def lm_serve_path(smoke: Smoke, dev) -> dict:
     qkv = warm_up_capturing(cfg, model, prompts, dev)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    res, launches = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, LM_GEN, dev))
+    res, launches = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, gen, dev))
     toks = res.tokens
-    smoke.check(tuple(toks.shape) == (LM_BATCH, LM_GEN), f"lm_serve: token shape {tuple(toks.shape)}")
+    smoke.check(tuple(toks.shape) == (LM_BATCH, gen), f"lm_serve: token shape {tuple(toks.shape)}")
     smoke.check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "lm_serve: token ids out of range")
-    steps = LM_GEN - 1
+    steps = gen - 1
     stats = {
-        "arch": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+        "arch": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": gen,
         "prefill_ms": res.prefill_seconds * 1e3,
         "prefill_tok_s": LM_BATCH * LM_PROMPT / res.prefill_seconds,
         "decode_ms_per_step": res.decode_seconds * 1e3 / steps,
@@ -1097,6 +1147,306 @@ def wide_head_lm_path(smoke: Smoke, dev) -> dict:
     return {"launches": n_launch, "qkv": qkv}
 
 
+def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
+    """Layer 0's captured q, k, v through flash against the plain version,
+    then the MoE LM's flash prefill and :data:`LM_TEACHER_STEPS` teacher-forced
+    decode steps against the reference attention branch on the same
+    weights, with every MoE layer's routing captured in both branches: the
+    tokens whose expert set differs between the branches, a layer each, and
+    the prefill's drop share (routed slots past capacity over routed slots,
+    counted on the host from the flash branch's routing). The logits agree
+    within :data:`LM_LOGIT_ATOL`. If they do not, and every row over the
+    limit is a sequence in which some token took another expert set (bf16
+    differences of attention move a near-tied router), the comparison runs
+    instead on a :data:`MOE_FALLBACK_LAYERS`-layer stack of the same width
+    under :data:`SHALLOW_LOGIT_RTOL`, as the phi-3 text stack's does; a row
+    over the limit without a flip fails the phase."""
+    import dataclasses
+
+    import repro_torch.models.moe as moe
+    from repro_torch.models import Ctx, api
+
+    cfg, model = lm["cfg"], lm["model"]
+    flash_on_captured(lm["qkv"], cfg.name)
+    dev = model.embed.device
+    tokens = torch.as_tensor(lm["prompts"], device=dev)
+    b, s = tokens.shape
+    route, routed = moe._route, []
+
+    def capture(c, xt, router):
+        gates, experts = route(c, xt, router)
+        routed.append(experts)
+        return gates, experts
+
+    def taken() -> list:
+        out = [e.sort(dim=1).values for e in routed]
+        routed.clear()
+        return out
+
+    ctx_f, ctx_r = Ctx(cfg), Ctx(dataclasses.replace(cfg, attn_impl="reference"))
+    max_len = s + LM_TEACHER_STEPS
+    moe._route = capture
+    try:
+        lf, cf = api.prefill(ctx_f, model, tokens, max_len)
+        ef = taken()
+        lr, cr = api.prefill(ctx_r, model, tokens, max_len)
+        er = taken()
+        pairs = [("prefill last-token logits", lf, lr, ef, er)]
+        for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size,
+                                                                  (LM_TEACHER_STEPS, b, 1))):
+            t = torch.as_tensor(tok, device=dev)
+            lf, cf = api.decode_step(ctx_f, model, t, cf)
+            df = taken()
+            lr, cr = api.decode_step(ctx_r, model, t, cr)
+            pairs.append((f"teacher-forced decode step {i}", lf, lr, df, taken()))
+    finally:
+        moe._route = route
+
+    # the prefill's drop share, on the host from the flash branch's routing
+    cap = moe._capacity(cfg, b * s, cfg.num_experts)
+    dropped = [int(np.maximum(np.bincount(e.cpu().numpy().ravel(), minlength=cfg.num_experts)
+                              - cap, 0).sum()) for e in ef]
+    routed_slots = b * s * cfg.experts_per_token
+    print(f"  prefill drop share: {sum(dropped) / (routed_slots * len(dropped))} of "
+          f"{routed_slots} routed slots a layer (capacity {cap}); per layer "
+          f"{[round(d / routed_slots, 5) for d in dropped]}")
+    # tokens routed to another expert set by the two branches, a layer each
+    flips = [(f != r).any(dim=1) for f, r in zip(ef, er)]
+    print(f"  prefill tokens (of {b * s}) with another expert set in the two branches, per layer: "
+          f"{[int(f.sum()) for f in flips]}")
+    flipped_seq = torch.stack(flips).any(dim=0).view(b, s).any(dim=1)  # (B,)
+    over, unexplained, worst = [], [], 0.0
+    for what, a, r, df, dr in pairs:
+        a, r = a.float(), r.float()
+        smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(r).all()), f"{what}: non-finite logits")
+        if what.startswith("teacher"):
+            step_flips = torch.stack([(f != g).any(dim=1) for f, g in zip(df, dr)]).any(dim=0)
+            flipped_seq |= step_flips
+            print(f"  {what}: {int(step_flips.sum())} of {b} rows took another expert set in some layer")
+        row_err = (a - r).abs().flatten(1).amax(dim=1)
+        err, top = float(row_err.max()), float(r.abs().max())
+        agree = float((a.argmax(-1) == r.argmax(-1)).float().mean())
+        worst = max(worst, err)
+        print(f"  {what}: max abs diff {err}, limit {LM_LOGIT_ATOL} (largest |logit| {top}; "
+              f"argmax agrees on {agree:.2f} of rows)")
+        for row in torch.nonzero(row_err > LM_LOGIT_ATOL).flatten().tolist():
+            over.append((what, row))
+            if not bool(flipped_seq[row]):  # no flip in this sequence so far
+                unexplained.append((what, row))
+    out = {"flips": [int(f.sum()) for f in flips], "drop_share": sum(dropped) / (routed_slots * len(dropped)),
+           "max_abs_diff": worst, "held_at": f"{cfg.num_layers} layers"}
+    if not over:
+        print(f"  held at full depth ({cfg.num_layers} layers) within {LM_LOGIT_ATOL}")
+        return out
+    smoke.check(not unexplained, f"flash and reference logits differ past {LM_LOGIT_ATOL} in rows "
+                                 f"without a routing flip: {unexplained}")
+    print(f"  {len(over)} rows past {LM_LOGIT_ATOL}, each in a sequence whose routing flipped: "
+          f"the comparison runs on a {MOE_FALLBACK_LAYERS}-layer stack of the same width")
+    shallow = dataclasses.replace(cfg, num_layers=MOE_FALLBACK_LAYERS)
+    lm_vs_reference(smoke, {"cfg": shallow, "model": api.init_params(shallow, seed=0, device=dev),
+                            "prompts": lm["prompts"]}, rtol=SHALLOW_LOGIT_RTOL[shallow.dtype])
+    out["held_at"] = f"{MOE_FALLBACK_LAYERS} layers (full depth: {len(over)} rows past the limit)"
+    return out
+
+
+def profile_moe_lm(lm: dict) -> None:
+    """One prefill and one decode step of the MoE LM under torch.profiler."""
+    from repro_torch.models import Ctx, api
+
+    ctx, model = Ctx(lm["cfg"]), lm["model"]
+    tokens = torch.as_tensor(lm["prompts"], device=model.embed.device)
+    _, caches = api.prefill(ctx, model, tokens, LM_PROMPT + MOE_GEN)
+    name = lm["cfg"].name
+    profile_calls({
+        f"{name} prefill ({LM_BATCH}x{LM_PROMPT}, flash)":
+            lambda: api.prefill(ctx, model, tokens, LM_PROMPT + MOE_GEN),
+        f"{name} decode step ({LM_BATCH} rows, {LM_PROMPT} cached)":
+            lambda: api.decode_step(ctx, model, tokens[:, -1:], caches),
+    })
+
+
+def cap8(capacity_factor: float, expected_slots: float) -> int:
+    """A capacity buffer's rows: the expected slots times the factor, at
+    least 8 and a multiple of 8."""
+    c = int(capacity_factor * expected_slots)
+    return max(8, -(-c // 8) * 8)
+
+
+def recount_dropped(mode: str, ids: list, n_experts: int, k: int, cf: float) -> int:
+    """Dropped slots of one dispatch, recounted in plain Python from each
+    shard's expert ids in slot order: a slot is dropped when the slots
+    before it in its bin fill the bin's capacity. tp: bins are the experts
+    of each shard; ep_pull: the experts over the whole stream (shard-major);
+    ep_push: first each shard's bins by owner, then, at each owner, the
+    experts over what arrived, source by source."""
+    p = len(ids)
+    t_shard = len(ids[0]) // k
+    total = p * t_shard
+
+    def over_capacity(stream, key, cap):
+        seen, kept, dropped = {}, [], 0
+        for e in stream:
+            b = key(e)
+            seen[b] = seen.get(b, 0) + 1
+            if seen[b] > cap:
+                dropped += 1
+            else:
+                kept.append(e)
+        return dropped, kept
+
+    if mode == "tp":
+        cap = cap8(cf, t_shard * k / n_experts)
+        return sum(over_capacity(shard, lambda e: e, cap)[0] for shard in ids)
+    cap_e = cap8(cf, total * k / n_experts)
+    if mode == "ep_pull":
+        return over_capacity([e for shard in ids for e in shard], lambda e: e, cap_e)[0]
+    e_local, cap_pair = n_experts // p, cap8(cf, t_shard * k / p)
+    arrived = {o: [] for o in range(p)}
+    dropped = 0
+    for shard in ids:
+        d, kept = over_capacity(shard, lambda e: e // e_local, cap_pair)
+        dropped += d
+        for e in kept:
+            arrived[e // e_local].append(e)
+    return dropped + sum(over_capacity(arrived[o], lambda e: e, cap_e)[0] for o in range(p))
+
+
+def moe_dispatch_path(smoke: Smoke, experts: tuple, dev) -> None:
+    """``moe_dispatch`` at the moonshot layer width through ``engine.run`` on
+    ``LocalSubstrate`` on the card: x (8192, 2048) bf16 and a router
+    (2048, 64) float32 at the init scale from numpy seed 3, top-6, capacity
+    factor 1.25, layer 0's experts of the served model. Each mode's result
+    equal to ``moe_dispatch_reference``, its dropped slots equal to
+    :func:`recount_dropped` on the card's routing, its traffic to
+    ``moe_dispatch_traffic`` of the routing replay; ``"auto"`` picks the
+    least modeled traffic from the plan cache; the ``cuda`` substrate
+    refuses the op."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import (
+        CudaSubstrate, LocalSubstrate, MoEDispatchInputs, OpNotSupportedError, PlanCache, Request,
+        choose_strategy, moe_dispatch_reference, moe_dispatch_traffic, run,
+    )
+    from repro_torch.engine.moe_op import _routing_replay
+    from repro_torch.models.moe import route
+
+    cfg = get_config(MOE_ARCH)
+    k, cf = cfg.experts_per_token, cfg.capacity_factor
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((LM_BATCH * LM_PROMPT, cfg.d_model), dtype=np.float32),
+                        device=dev).to(torch.bfloat16)
+    router = torch.as_tensor(0.02 * rng.standard_normal((cfg.d_model, cfg.num_experts),
+                                                        dtype=np.float32), device=dev)
+    w_gate, w_up, w_down = experts
+    sub, cache = LocalSubstrate(dev), PlanCache()
+    traffic = {}
+    for label, st, nodelets in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE), 8),
+                                ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE), 8),
+                                ("tp", MigratoryStrategy(), 1)):
+        inputs = MoEDispatchInputs(x, router, nodelets=nodelets, experts_per_token=k,
+                                   capacity_factor=cf, w_gate=w_gate, w_up=w_up, w_down=w_down)
+        y, report = run(Request("moe_dispatch", inputs, st, sub), cache=cache)
+        print("report " + report.to_json(), flush=True)
+        print(f"  moe_dispatch {label}, nodelets {nodelets}: {report.seconds * 1e3:.3f} ms, "
+              f"{report.effective_gbps:.1f} GB/s of bytes moved, dropped "
+              f"{report.metrics['dropped_slots']} of {report.metrics['routed_slots']} slots "
+              f"(first call {report.compile_seconds * 1e3:.1f} ms)", flush=True)
+        smoke.check(report.metrics["dispatch_mode"] == label, f"moe_dispatch: mode {report.metrics}")
+        smoke.check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all()),
+                    f"moe_dispatch {label}: output {tuple(y.shape)} not finite or out of shape")
+        smoke.check(torch.equal(y, moe_dispatch_reference(inputs, st)),
+                    f"moe_dispatch {label}: engine.run differs from moe_dispatch_reference")
+        t_shard = x.shape[0] // nodelets
+        with torch.inference_mode():
+            ids = [route(x[i * t_shard:(i + 1) * t_shard], router, k)[1].flatten().tolist()
+                   for i in range(nodelets)]
+        want = recount_dropped(label, ids, cfg.num_experts, k, cf)
+        smoke.check(report.metrics["dropped_slots"] == want,
+                    f"moe_dispatch {label}: {report.metrics['dropped_slots']} dropped, recount {want}")
+        smoke.check(report.traffic == moe_dispatch_traffic(inputs, st, _routing_replay(inputs)),
+                    f"moe_dispatch {label}: traffic {report.traffic} is not the replay's")
+        traffic[label] = (report.traffic.total_bytes, inputs)
+    inputs = traffic["ep_push"][1]
+    pick = choose_strategy("moe_dispatch", inputs, sub)
+    _, report = run(Request("moe_dispatch", inputs, "auto", sub), cache=cache)
+    print(f"  auto: {report.metrics['dispatch_mode']}, cache_hit {report.cache_hit}, "
+          f"traffic {report.traffic.total_bytes} (ep_push {traffic['ep_push'][0]}, "
+          f"ep_pull {traffic['ep_pull'][0]})")
+    smoke.check(report.metrics["dispatch_mode"] == ("ep_pull" if pick.comm == Comm.MIGRATE
+                                                    else "ep_push"), "auto: not choose_strategy's pick")
+    smoke.check(report.traffic.total_bytes == min(traffic["ep_push"][0], traffic["ep_pull"][0]),
+                "auto: not the least modeled traffic")
+    smoke.check(report.cache_hit, "auto: not a plan-cache hit")
+    try:
+        run(Request("moe_dispatch", inputs, None, CudaSubstrate(dev)), cache=cache)
+    except OpNotSupportedError as e:
+        print(f"  cuda substrate refuses moe_dispatch: {e}")
+    else:
+        raise AssertionError("CudaSubstrate ran moe_dispatch: it has no kernel for it")
+
+
+def decode_server_path(smoke: Smoke, dev) -> list:
+    """``DecodeServer`` through the ``EngineService`` worker loop on
+    ``LocalSubstrate`` on the card, each worker on a stream of its own, for
+    :data:`DECODE_CONFIGS`: :data:`DECODE_SEQS` sequences with prompts of
+    2-5 tokens and :data:`DECODE_NEW` new tokens each, joining staggered
+    into :data:`DECODE_CAPACITY` slots; ep_push and ep_pull at the config's
+    nodelets, tp at 1, each at W = 1 and 2. The served tokens equal the
+    oracle's (the same steps on the caller's stream) token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import DecodeServer, EngineService, LocalSubstrate, PlanCache
+    from repro_torch.models.transformer import moe_decode_params
+
+    rows = []
+    for arch, ep_nodelets in DECODE_CONFIGS:
+        cfg = get_config(arch)
+        params = moe_decode_params(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(2, 6))).tolist()
+                   for _ in range(DECODE_SEQS)]
+        sub = LocalSubstrate(dev)
+
+        def drive(server):
+            for i, prompt in enumerate(prompts):
+                server.add(prompt, max_new_tokens=DECODE_NEW)
+                if i % 2:
+                    server.step()
+            return dict(server.run_until_drained()), server.steps
+
+        for label, st, nodelets in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE), ep_nodelets),
+                                    ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE), ep_nodelets),
+                                    ("tp", MigratoryStrategy(), 1)):
+            mk = dict(capacity=DECODE_CAPACITY, max_len=32, nodelets=nodelets, strategy=st,
+                      substrate=sub, device=dev)
+            oracle, steps = drive(DecodeServer(cfg, params, oracle=True, **mk))
+            for workers in (1, 2):
+                svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=workers,
+                                    slo_target_seconds=5.0).start()
+                try:
+                    served, _ = drive(DecodeServer(cfg, params, service=svc, **mk))
+                finally:
+                    svc.stop()
+                report = svc.throughput_report()
+                row = {"config": cfg.name, "dtype": cfg.dtype, "mode": label, "nodelets": nodelets,
+                       "workers": workers, "steps": steps,
+                       "steps_per_s": report["requests_per_second"],
+                       "total_p50_ms": report["total_p50"] * 1e3,
+                       "total_p99_ms": report["total_p99"] * 1e3,
+                       "service_p50_ms": report["service_p50"] * 1e3,
+                       "slo_violations": report["slo_violations"], "parity": served == oracle}
+                print("  decode " + json.dumps(row), flush=True)
+                rows.append(row)
+                smoke.check(sorted(served) == list(range(DECODE_SEQS))
+                            and all(len(t) == DECODE_NEW for t in served.values()),
+                            f"decode {cfg.name} {label} W={workers}: not every sequence finished")
+                smoke.check(served == oracle, f"decode {cfg.name} {label} W={workers}: served "
+                                              "tokens differ from the oracle's")
+        del params
+        torch.cuda.empty_cache()
+    return rows
+
+
 def small_agreement(smoke: Smoke, dev) -> None:
     from repro_torch.core import Comm, MigratoryStrategy, bucketize, generate_alignment_pair
     from repro_torch.core import partition_ell, pick_grid
@@ -1130,6 +1480,59 @@ def small_agreement(smoke: Smoke, dev) -> None:
     (c_c, s_c), _ = run(Request("gsana", gi, None, card), iters=1, warmup=0)
     smoke.check(torch.equal(c_l, c_c), "small gsana: cuda and local candidates differ")
     torch.testing.assert_close(s_c, s_l, rtol=0, atol=1e-6)
+    moe_small_agreement(dev)
+
+
+def moe_small_agreement(dev) -> None:
+    """``moe_dispatch`` (with SwiGLU experts) and ``moe_decode`` (serve-moe)
+    on ``LocalSubstrate`` on the card against the same on the CPU, small
+    float32 inputs, every mode, within ``rtol=atol=1e-5``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import LocalSubstrate, MoEDecodeInputs, MoEDispatchInputs, Request, run
+    from repro_torch.models.transformer import moe_decode_params
+
+    rng = np.random.default_rng(5)
+    t, d, e, f = 128, 32, 16, 24
+    arrays = {"x": rng.standard_normal((t, d)), "router": rng.standard_normal((d, e)),
+              **{name: 0.2 * rng.standard_normal(shape) for name, shape in
+                 (("w_gate", (e, d, f)), ("w_up", (e, d, f)), ("w_down", (e, f, d)))}}
+    cfg = get_config("serve-moe")
+    params = moe_decode_params(cfg, seed=0, device="cpu")
+    b, cache_len = 8, 16
+    step = {"tokens": rng.integers(1, cfg.vocab_size, b),
+            "k_cache": rng.standard_normal((b, cache_len, cfg.d_model)),
+            "v_cache": rng.standard_normal((b, cache_len, cfg.d_model)),
+            "positions": rng.integers(0, cache_len - 1, b)}
+
+    def on(device):
+        def tensor(a):
+            return torch.as_tensor(a.astype(np.float32) if a.dtype == np.float64 else a, device=device)
+
+        dispatch = {p: MoEDispatchInputs(nodelets=p, experts_per_token=2,
+                                         **{k: tensor(a) for k, a in arrays.items()}) for p in (8, 1)}
+        decode = {p: MoEDecodeInputs(params={k: w.to(device) for k, w in params.items()}, nodelets=p,
+                                     experts_per_token=cfg.experts_per_token,
+                                     capacity_factor=cfg.capacity_factor,
+                                     **{k: tensor(a) for k, a in step.items()}) for p in (4, 1)}
+        return LocalSubstrate(device), dispatch, decode
+
+    (sub_c, disp_c, dec_c), (sub_h, disp_h, dec_h) = on(dev), on("cpu")
+    for comm in Comm:
+        st = MigratoryStrategy(comm=comm)
+        for p in (8, 1):
+            got, rep = run(Request("moe_dispatch", disp_c[p], st, sub_c), iters=1, warmup=0)
+            want, _ = run(Request("moe_dispatch", disp_h[p], st, sub_h), iters=1, warmup=0)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"moe_dispatch {rep.metrics['dispatch_mode']}: {m}")
+        for p in (4, 1):
+            got, rep = run(Request("moe_decode", dec_c[p], st, sub_c), iters=1, warmup=0)
+            want, _ = run(Request("moe_decode", dec_h[p], st, sub_h), iters=1, warmup=0)
+            for name, g, w in zip(("logits", "k_cache", "v_cache"), got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5,
+                                           msg=lambda m: f"moe_decode {rep.metrics['dispatch_mode']} {name}: {m}")
+    print("  moe_dispatch (ep_push, ep_pull, tp) and moe_decode (ep_push, ep_pull, tp) on the card "
+          "agree with the CPU within 1e-5")
 
 
 def profile_requests(inputs: dict, lm: "dict | None") -> None:
@@ -1137,8 +1540,6 @@ def profile_requests(inputs: dict, lm: "dict | None") -> None:
     torch.profiler: the device's busy time (sum of kernel time; one stream,
     so nothing overlaps) against the call's wall time, and the kernels that
     take it. The profiler's own overhead is inside the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import MigratoryStrategy
     from repro_torch.engine import CudaSubstrate, Request, build_plan, compile_plan
     from repro_torch.models import Ctx, api
@@ -1161,6 +1562,14 @@ def profile_requests(inputs: dict, lm: "dict | None") -> None:
             lambda: api.prefill(ctx, model, tokens, LM_PROMPT + LM_GEN))
         calls[f"LM decode step ({LM_BATCH} rows, {LM_PROMPT} cached)"] = (
             lambda: api.decode_step(ctx, model, tokens[:, -1:], caches))
+    profile_calls(calls)
+
+
+def profile_calls(calls: dict) -> None:
+    """Each warm call once under torch.profiler: device busy time against
+    wall time, kernel count and the four largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
     for name, call in calls.items():
         call()  # warm: the plan cache already holds each executor
         torch.cuda.synchronize()
@@ -1405,9 +1814,10 @@ FLASH_LAYERS = [
 ]
 
 
-def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict) -> None:
+def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict,
+                   moe: "dict | None" = None) -> None:
     """flash_attn against its plain version (at the kernel's k tile) on
-    layer 0's q, k, v from the llama and phi-3 prefills, on small cases of
+    layer 0's q, k, v from the llama, phi-3 and moonshot prefills, on small cases of
     every mask kind at the configs' head dims, and at the full layer shapes
     of :data:`FLASH_LAYERS`; times kernel, plain version and
     scaled_dot_product_attention (a yardstick, never called by the port)."""
@@ -1490,6 +1900,9 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict) -
             launches = (reduced or {}).get(counted_in, 0)
             where = f"LM serve reduced {LM_ARCH}, {counted_in}"
         flash_row(case, *fold_qkv(q4, k4, v4), q4, k4, v4, launches, launches_counted_in=where)
+    if moe is not None:  # MHA: 16 kv heads for 16 q heads, 64 (B x H) planes
+        flash_row(f"{MOE_ARCH} layer 0 of the prefill", *fold_qkv(*moe["qkv"]), *moe["qkv"],
+                  moe["launches"], launches_counted_in=f"LM serve {MOE_ARCH}, one prefill")
 
 
 def finish(smoke: Smoke) -> int:

@@ -1,6 +1,8 @@
 """The port's engine: one substrate-dispatched entry point for the paper's
-three irregular algorithms, with the paper's traffic and bandwidth
-accounting and an explicit plan -> compile -> execute pipeline.
+three irregular algorithms and the MoE ops (``moe_dispatch``,
+``moe_decode``, served in continuous batches by :class:`DecodeServer`), with
+the paper's traffic and bandwidth accounting and an explicit plan -> compile
+-> execute pipeline.
 
     from repro_torch.engine import Request, run, SpMVInputs
     y, report = run(Request("spmv", SpMVInputs(a, x), strategy, "cuda"))
@@ -43,6 +45,22 @@ from .ops import (
     SpMVInputs,
     SpMVOp,
 )
+from .decode import DecodeServer
+from .decode_op import (
+    MoEDecodeInputs,
+    MoEDecodeOp,
+    moe_decode_cost_model,
+    moe_decode_reference,
+    moe_decode_traffic,
+)
+from .moe_op import (
+    MoEDispatchInputs,
+    MoEDispatchOp,
+    moe_dispatch_cost_model,
+    moe_dispatch_grid,
+    moe_dispatch_reference,
+    moe_dispatch_traffic,
+)
 from .probes import ProbeStore, default_probe_store
 from .registry import (
     KernelRegistry, OpSpec, capabilities, default_registry, kernel, placement_table, register_op,
@@ -82,8 +100,9 @@ from .wire import (
 
 __all__ = [
     "AdmissionError", "AutotuneResult", "BFSInputs", "BFSOp", "CUDA_BLOCK_CANDIDATES",
-    "CompiledPlan", "CudaSubstrate", "EngineService", "ExecutionPlan", "GRAIN_CANDIDATES",
-    "GSANAInputs", "GSANAOp", "KernelRegistry", "LocalSubstrate", "MigratoryOp",
+    "CompiledPlan", "CudaSubstrate", "DecodeServer", "EngineService", "ExecutionPlan",
+    "GRAIN_CANDIDATES", "GSANAInputs", "GSANAOp", "KernelRegistry", "LocalSubstrate",
+    "MigratoryOp", "MoEDecodeInputs", "MoEDecodeOp", "MoEDispatchInputs", "MoEDispatchOp",
     "OpNotSupportedError", "OpSpec", "PlanCache", "ProbeStore", "RankedCandidate", "Request",
     "RunReport", "SegmentTable", "ServiceFuture", "ServiceRequest", "ServiceResponse",
     "ServiceStats", "ServiceStopped", "ServiceTimeout", "SpMVInputs", "SpMVOp", "Substrate",
@@ -91,7 +110,9 @@ __all__ = [
     "canonical_bytes", "capabilities", "choose_strategy", "collect_blob_digests",
     "compile_plan", "content_digest", "decode_value", "default_cache", "default_probe_store",
     "default_registry", "encode_value", "execute", "get_substrate", "kernel",
-    "list_substrates", "placement_table", "plan_key", "rank_strategies", "register_op",
+    "list_substrates", "moe_decode_cost_model", "moe_decode_reference", "moe_decode_traffic",
+    "moe_dispatch_cost_model", "moe_dispatch_grid", "moe_dispatch_reference",
+    "moe_dispatch_traffic", "placement_table", "plan_key", "rank_strategies", "register_op",
     "register_substrate", "resolve_op", "run", "run_plan", "run_request", "single_call",
     "strategy_dict",
 ]

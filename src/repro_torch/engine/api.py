@@ -38,11 +38,14 @@ def strategy_dict(strategy: MigratoryStrategy) -> dict[str, Any]:
 
 
 def _structure(obj: Any, leaves: list) -> Any:
-    """Walk dataclasses, tuples and lists; tensors and arrays become leaves
-    (appended to ``leaves``), every other value stays in the structure."""
+    """Walk dataclasses, tuples, lists and dicts (in key order); tensors and
+    arrays become leaves (appended to ``leaves``), every other value stays
+    in the structure."""
     if hasattr(obj, "shape") and hasattr(obj, "dtype"):  # tensors and arrays
         leaves.append(obj)
         return "*"
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((k, _structure(obj[k], leaves)) for k in sorted(obj))
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return (type(obj).__name__,) + tuple(
             (f.name, _structure(getattr(obj, f.name), leaves)) for f in dataclasses.fields(obj)

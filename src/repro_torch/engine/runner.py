@@ -30,7 +30,9 @@ import torch
 
 from ..core.strategies import MigratoryStrategy
 from ..machine.perfmodel import maybe_predict_plan_seconds
-from . import ops as _ops  # noqa: F401  (imports register the built-in OpSpecs)
+from . import decode_op as _decode_op  # noqa: F401  (imports register the built-in OpSpecs)
+from . import moe_op as _moe_op  # noqa: F401
+from . import ops as _ops  # noqa: F401
 from .api import ExecutionPlan, MigratoryOp, RunReport
 from .cache import CompiledPlan, PlanCache, default_cache
 from .registry import default_registry

@@ -21,6 +21,15 @@ twice the QoS weight.
     PYTHONPATH=src python -m repro_torch.launch.serve --ops-async --ops-workers 2 \\
         --ops-rate 100 --ops-admission reject [--device cpu]
 
+MoE decode path (``--decode-serve``): continuous-batched decode of the
+``serve-moe`` config (``--decode-arch`` names another MoE config, e.g.
+``moonshot-v1-16b-a3b`` at full width) through ``DecodeServer``, each step
+one request through the ``EngineService`` worker loop with an SLO target,
+the served tokens checked token-for-token against the single-process oracle.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --decode-serve \
+        --serve-dispatch ep_pull --serve-nodelets 4 [--device cpu]
+
 Every path runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -179,6 +188,73 @@ def ops_demo_async(
     return report
 
 
+def decode_serve_demo(
+    n_seqs: int = 8,
+    capacity: int = 8,
+    max_new: int = 8,
+    workers: "int | str" = 2,
+    slo_ms: float = 5000.0,
+    nodelets: int = 4,
+    dispatch: str = "ep_pull",
+    seed: int = 0,
+    arch: str = "serve-moe",
+    device="cuda",
+) -> dict:
+    """Continuous-batched MoE decode serving: the config's expert FFNs run
+    behind ``moe_dispatch`` transport, every decode step travels as one
+    :class:`Request` through the worker-loop service (on ``LocalSubstrate``
+    on ``device``) with an SLO target, and the served tokens are
+    cross-checked token-for-token against the single-process oracle."""
+    from ..core import Comm, MigratoryStrategy
+    from ..engine import DecodeServer, EngineService, LocalSubstrate
+    from ..models.transformer import moe_decode_params
+
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    params = moe_decode_params(cfg, seed, dev)
+    strategy = {
+        "ep_pull": MigratoryStrategy(comm=Comm.MIGRATE),
+        "ep_push": MigratoryStrategy(comm=Comm.REMOTE_WRITE),
+    }.get(dispatch)
+    nod = 1 if dispatch == "tp" else nodelets
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(1, cfg.vocab_size, size=int(rng.integers(2, 6))).tolist()
+        for _ in range(n_seqs)
+    ]
+    sub = LocalSubstrate(dev)
+    mk = dict(capacity=capacity, max_len=32, nodelets=nod, strategy=strategy, substrate=sub,
+              device=dev)
+
+    def drive(server):
+        # staggered joins: half the sequences arrive while others are decoding
+        for i, prompt in enumerate(prompts):
+            server.add(prompt, max_new_tokens=max_new)
+            if i % 2:
+                server.step()
+        server.run_until_drained()
+        return dict(server.results)
+
+    svc = EngineService(substrate=sub, device=dev, workers=workers,
+                        slo_target_seconds=slo_ms / 1e3)
+    svc.start()
+    try:
+        served = drive(DecodeServer(cfg, params, service=svc, **mk))
+    finally:
+        svc.stop()
+    stats = svc.stats()
+    oracle = drive(DecodeServer(cfg, params, oracle=True, **mk))
+    parity = served == oracle
+    print(f"served {len(served)} sequences of {cfg.name} (dispatch={dispatch}, nodelets={nod}, "
+          f"workers={workers}, device={dev}), oracle parity: {parity}")
+    print(f"latency p50/p99: {stats.total_p50 * 1e3:.1f}/{stats.total_p99 * 1e3:.1f} ms; "
+          f"SLO {slo_ms:.0f} ms -> {stats.slo_violations}/{stats.slo_checked} violations "
+          f"(attainment {stats.slo_attainment})")
+    report = {**svc.throughput_report(), "oracle_parity": parity}
+    print(json.dumps(report, default=str))
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -199,7 +275,26 @@ def main(argv=None) -> None:
                     help="admission policy when the async queue is full")
     ap.add_argument("--ops-workers", default="1",
                     help="executor-pool width for --ops-async (int or 'auto')")
+    ap.add_argument("--decode-serve", action="store_true",
+                    help="continuous-batched MoE decode serving with SLO stats")
+    ap.add_argument("--decode-arch", default="serve-moe",
+                    help="the MoE config --decode-serve serves")
+    ap.add_argument("--serve-seqs", type=int, default=8)
+    ap.add_argument("--serve-dispatch", choices=("ep_pull", "ep_push", "tp"), default="ep_pull")
+    ap.add_argument("--serve-nodelets", type=int, default=4)
+    ap.add_argument("--serve-slo-ms", type=float, default=5000.0,
+                    help="per-request SLO target in ms for --decode-serve")
     args = ap.parse_args(argv)
+
+    if args.decode_serve:
+        workers = args.ops_workers if args.ops_workers == "auto" else int(args.ops_workers)
+        report = decode_serve_demo(
+            args.serve_seqs, dispatch=args.serve_dispatch, nodelets=args.serve_nodelets,
+            slo_ms=args.serve_slo_ms, arch=args.decode_arch, device=args.device,
+            workers=max(2, workers) if workers != "auto" else workers)
+        if not report["oracle_parity"]:
+            raise SystemExit("served tokens differ from the oracle's")
+        return
 
     if args.ops_async:
         workers = args.ops_workers if args.ops_workers == "auto" else int(args.ops_workers)

@@ -1,6 +1,7 @@
 """Family-dispatching model API for serving: ``init_params``, ``prefill``,
-``decode_step`` and ``init_decode_state``. Only the dense family is ported;
-the others raise ``NotImplementedError``."""
+``decode_step`` and ``init_decode_state``. The dense and MoE families are
+ported (both through ``transformer``); the others raise
+``NotImplementedError``."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +10,7 @@ from . import transformer
 from .config import ModelConfig
 from .layers import Ctx
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer}
 
 
 def module_for(cfg: ModelConfig):

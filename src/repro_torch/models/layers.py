@@ -29,9 +29,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _normal(shape, cfg: ModelConfig, gen: torch.Generator, device) -> nn.Parameter:
-    """N(0, 0.02) in the config's type, as the JAX package's initializers."""
-    t = torch.empty(shape, dtype=dtype_of(cfg), device=device)
+def _normal(shape, cfg: ModelConfig, gen: torch.Generator, device, dtype=None) -> nn.Parameter:
+    """N(0, 0.02) in the config's type (or ``dtype``), as the JAX package's
+    initializers, drawn in place: no float32 copy of a bf16 tensor is made."""
+    t = torch.empty(shape, dtype=dtype or dtype_of(cfg), device=device)
     with torch.no_grad():
         t.normal_(0.0, 0.02, generator=gen)
     return nn.Parameter(t)

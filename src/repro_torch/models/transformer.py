@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense family (llama, qwen2, mistral, glm4): per-layer
-blocks, prefill and KV-cache decode.
+"""Decoder-only LM, dense (llama, qwen2, mistral, glm4) and MoE (mixtral,
+moonshot) families: per-layer blocks, prefill and KV-cache decode, and the
+flat single-block parameters of the engine's ``moe_decode`` op.
 
 The functions take ``(ctx, params, ...)`` as the JAX package's do, with
 ``params`` a :class:`Transformer`. The context is apart from the weights so
@@ -18,6 +19,7 @@ from torch import nn
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, mlp_sublayer, norm
+from .moe import MoE, moe_sublayer
 
 NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 10: 'LM stack: what is left')"
 
@@ -29,25 +31,29 @@ class KVCaches(NamedTuple):
 
 
 class Block(nn.Module):
+    """``ln1``, ``attn``, ``ln2`` and the feed-forward: ``moe`` (the experts)
+    for an MoE config, else ``mlp``."""
+
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg, cfg.d_model, device)
         self.ln2 = RMSNorm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, gen, device)
-        self.mlp = MLP(cfg, gen, device)
+        if cfg.is_moe:
+            self.moe = MoE(cfg, gen, device)
+        else:
+            self.mlp = MLP(cfg, gen, device)
 
 
 class Transformer(nn.Module):
     """The weights: ``embed`` (V, D), ``blocks.<i>`` (``ln1``, ``attn``,
-    ``ln2``, ``mlp``), ``final_norm``, ``lm_head`` (D, V). Matrices are drawn
+    ``ln2``, ``mlp`` or ``moe``), ``final_norm``, ``lm_head`` (D, V). Matrices are drawn
     from N(0, 0.02) by a ``torch.Generator`` seeded with ``seed`` on
     ``device``, norms start at ones and biases at zeros, as the JAX
     package's ``init_params`` (whose random numbers differ)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(f"{cfg.name}: the MoE layer stack is {NOT_PORTED}")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
@@ -71,7 +77,10 @@ def _block(ctx: Ctx, p: Block, x, *, pos_offset=0, cache=None, cache_len=None):
     h, new_cache = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), pos_offset=pos_offset,
                                  cache=cache, cache_len=cache_len)
     x = x + h
-    x = x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x))
+    if hasattr(p, "moe"):
+        x = x + moe_sublayer(ctx, p.moe, norm(ctx, p.ln2, x))
+    else:
+        x = x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x))
     return x, new_cache
 
 
@@ -89,6 +98,33 @@ def forward(ctx: Ctx, params: Transformer, tokens: torch.Tensor) -> torch.Tensor
 
 
 # -- serving -------------------------------------------------------------------
+
+
+# the keys of moe_decode_params, the layout the engine's moe_decode op reads
+MOE_DECODE_PARAM_KEYS = (
+    "embed", "ln1", "ln2", "ln_f", "wq", "wk", "wv", "wo",
+    "router", "w_gate", "w_up", "w_down", "lm_head",
+)
+
+
+def moe_decode_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict[str, torch.Tensor]:
+    """Flat single-block MoE decode-serving params for the engine's
+    ``moe_decode`` op (``engine/decode_op.py``): one single-head attention
+    sublayer (head dim = d_model), one MoE sublayer in the :class:`MoE`
+    layout (``router`` float32), rmsnorms at ones; matrices drawn in place
+    from N(0, 0.02) by a generator seeded with ``seed`` on ``device``. Use a
+    float32 config (``serve-moe``) where decode is held against the JAX
+    package."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, dt = cfg.d_model, dtype_of(cfg)
+    moe = MoE(cfg, gen, dev)
+    p = {"embed": _normal((cfg.vocab_size, d), cfg, gen, dev)}
+    p.update({name: torch.ones(d, dtype=dt, device=dev) for name in ("ln1", "ln2", "ln_f")})
+    p.update({name: _normal((d, d), cfg, gen, dev) for name in ("wq", "wk", "wv", "wo")})
+    p.update({name: getattr(moe, name) for name in ("router", "w_gate", "w_up", "w_down")})
+    p["lm_head"] = _normal((d, cfg.vocab_size), cfg, gen, dev)
+    return {name: t.detach() for name, t in p.items()}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> KVCaches:

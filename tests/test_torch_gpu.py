@@ -505,3 +505,74 @@ def test_flash_attn_raises_instead_of_falling_back(cuda):
         flash_attn(q, q[:3], q[:3])
     with pytest.raises(ValueError, match="all be on CUDA"):
         flash_attn(q, q.cpu(), q.cpu())
+
+
+def _moe_dispatch_inputs(device, nodelets=8, seed=5) -> "object":
+    from repro_torch.engine import MoEDispatchInputs
+
+    rng = np.random.default_rng(seed)
+    t, d, e, f = 128, 32, 16, 24
+    arrays = {"x": rng.standard_normal((t, d)), "router": rng.standard_normal((d, e)),
+              "w_gate": 0.2 * rng.standard_normal((e, d, f)),
+              "w_up": 0.2 * rng.standard_normal((e, d, f)),
+              "w_down": 0.2 * rng.standard_normal((e, f, d))}
+    return MoEDispatchInputs(nodelets=nodelets, experts_per_token=2, **{
+        k: torch.as_tensor(v.astype(np.float32), device=device) for k, v in arrays.items()})
+
+
+@pytest.mark.parametrize("comm,nodelets", [("migrate", 8), ("remote_write", 8), ("migrate", 1)])
+def test_moe_dispatch_on_the_card_matches_the_cpu(cuda, comm, nodelets):
+    """moe_dispatch on LocalSubstrate("cuda") against the CPU port (within
+    1e-5), and the cuda substrate refuses the op instead of running it
+    elsewhere."""
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import OpNotSupportedError, PlanCache
+
+    st = MigratoryStrategy(comm=Comm(comm))
+    on_card = _moe_dispatch_inputs(cuda, nodelets)
+    on_cpu = _moe_dispatch_inputs("cpu", nodelets)
+    y_card, rep_card = run(Request("moe_dispatch", on_card, st, LocalSubstrate(cuda)),
+                           iters=1, warmup=0, cache=PlanCache())
+    y_cpu, rep_cpu = run(Request("moe_dispatch", on_cpu, st, LocalSubstrate("cpu")),
+                         iters=1, warmup=0, cache=PlanCache())
+    assert y_card.is_cuda
+    torch.testing.assert_close(y_card.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    assert rep_card.metrics["dropped_slots"] == rep_cpu.metrics["dropped_slots"]
+    assert rep_card.traffic == rep_cpu.traffic
+    with pytest.raises(OpNotSupportedError):
+        run(Request("moe_dispatch", on_card, st, CudaSubstrate(cuda)), cache=PlanCache())
+
+
+@pytest.mark.parametrize("comm,nodelets", [("migrate", 4), ("remote_write", 4), ("migrate", 1)])
+def test_decode_server_on_the_card_equals_the_oracle(cuda, comm, nodelets):
+    """DecodeServer through the EngineService worker loop at W = 2 (each
+    worker on a stream of its own) serves the oracle's tokens, token for
+    token."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import DecodeServer, EngineService, PlanCache
+    from repro_torch.models.transformer import moe_decode_params
+
+    cfg = get_config("serve-moe")
+    params = moe_decode_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist() for n in rng.integers(2, 6, 6)]
+    mk = dict(capacity=4, max_len=16, nodelets=nodelets,
+              strategy=MigratoryStrategy(comm=Comm(comm)), substrate=LocalSubstrate(cuda),
+              device=cuda)
+
+    def drive(server):
+        for i, prompt in enumerate(prompts):
+            server.add(prompt, max_new_tokens=4)
+            if i % 2:
+                server.step()
+        return dict(server.run_until_drained())
+
+    oracle = drive(DecodeServer(cfg, params, oracle=True, **mk))
+    svc = EngineService(cache=PlanCache(), substrate=LocalSubstrate(cuda), device=cuda,
+                        workers=2).start()
+    try:
+        served = drive(DecodeServer(cfg, params, service=svc, **mk))
+    finally:
+        svc.stop()
+    assert served == oracle
