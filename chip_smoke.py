@@ -66,10 +66,12 @@ result, without them or outside a checkout of the repository. In order:
    a prefill (an ``lm {...}`` line); holds the flash prefill and 4
    teacher-forced decode steps against the reference attention branch
    (``LM_LOGIT_ATOL``; routing flips per layer between the branches and the
-   prefill's drop share printed; a 2-layer stack of the same width under
+   prefill's drop share printed, the slots each layer kept held against a
+   host recount; a 2-layer stack of the same width under
    ``SHALLOW_LOGIT_RTOL`` where flips explain a full-depth difference),
    profiles one prefill and one decode step; then runs ``moe_dispatch`` at
-   its layer width (x (8192, 2048) bf16, layer 0's experts) through
+   its layer width (x (8192, 2048) bf16 i.i.d., and layer 24's input in the
+   served prefill, where slots are dropped; layer 24's experts) through
    ``engine.run`` on ``LocalSubstrate`` in ep_push, ep_pull (P = 8) and tp,
    each equal to ``moe_dispatch_reference``, its dropped slots to a plain
    recount and its traffic to the replay's, ``"auto"`` a plan-cache hit, the
@@ -158,6 +160,10 @@ SERVE_REQUESTS, SERVE_WORKERS = 24, (1, 2, 4)
 # and reference branches are held on instead if routing flips explain a
 # full-depth difference past LM_LOGIT_ATOL (fixed before the first run)
 MOE_ARCH, MOE_GEN, MOE_FALLBACK_LAYERS = "moonshot-v1-16b-a3b", 8, 2
+# the served prefill's layer whose MoE input, router and experts moe_dispatch
+# also runs on: routing of real hidden states fills experts past capacity,
+# which i.i.d. inputs at the router's init scale do not
+MOE_DISPATCH_LAYER = 24
 # DecodeServer: (config, nodelets of the ep modes) served in bf16 and
 # float32 as the configs give them; sequences, new tokens each, batch slots
 DECODE_CONFIGS = (("serve-moe", 4), ("moonshot-v1-16b-a3b", 8))
@@ -271,18 +277,18 @@ def main() -> int:
     moe = smoke.phase(f"LM serve ({MOE_ARCH}, MoE, flash)", lm_serve_path, smoke, dev, MOE_ARCH,
                       MOE_GEN)
     if moe is not None:
-        smoke.phase(f"LM ({MOE_ARCH}) flash prefill and decode vs the reference attention branch, "
-                    "routing flips and drop share", moe_lm_vs_reference, smoke, moe)
+        held = smoke.phase(f"LM ({MOE_ARCH}) flash prefill and decode vs the reference attention "
+                           "branch, routing flips and drop share", moe_lm_vs_reference, smoke, moe)
         smoke.phase(f"device time of one {MOE_ARCH} prefill and decode step (torch.profiler)",
                     profile_moe_lm, moe)
-        # layer 0's experts stay for moe_dispatch; the rest of the stack goes
-        blk = moe.pop("model").blocks[0].moe
+        # one layer's experts stay for moe_dispatch; the rest of the stack goes
+        blk = moe.pop("model").blocks[MOE_DISPATCH_LAYER].moe
         experts = tuple(w.detach() for w in (blk.w_gate, blk.w_up, blk.w_down))
         del blk
         torch.cuda.empty_cache()
         smoke.phase("moe_dispatch through engine.run (moonshot layer width)", moe_dispatch_path,
-                    smoke, experts, dev)
-        del experts
+                    smoke, experts, held and held["served"], dev)
+        del experts, held
         torch.cuda.empty_cache()
     smoke.phase("DecodeServer through EngineService", decode_server_path, smoke, dev)
     if launches is not None:
@@ -1154,13 +1160,17 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
     weights, with every MoE layer's routing captured in both branches: the
     tokens whose expert set differs between the branches, a layer each, and
     the prefill's drop share (routed slots past capacity over routed slots,
-    counted on the host from the flash branch's routing). The logits agree
+    counted on the host from the flash branch's routing; the slots the
+    program kept in each layer equal each expert's first ``capacity`` slots
+    in slot order, recounted on the host). The logits agree
     within :data:`LM_LOGIT_ATOL`. If they do not, and every row over the
     limit is a sequence in which some token took another expert set (bf16
     differences of attention move a near-tied router), the comparison runs
     instead on a :data:`MOE_FALLBACK_LAYERS`-layer stack of the same width
     under :data:`SHALLOW_LOGIT_RTOL`, as the phi-3 text stack's does; a row
-    over the limit without a flip fails the phase."""
+    over the limit without a flip fails the phase. Returns the flash
+    prefill's MoE input and router at :data:`MOE_DISPATCH_LAYER` under
+    ``"served"``."""
     import dataclasses
 
     import repro_torch.models.moe as moe
@@ -1171,23 +1181,31 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
     dev = model.embed.device
     tokens = torch.as_tensor(lm["prompts"], device=dev)
     b, s = tokens.shape
-    route, routed = moe._route, []
+    route, local_dispatch, routed, kept, served = moe._route, moe._local_dispatch, [], [], {}
 
     def capture(c, xt, router):
+        if len(routed) == MOE_DISPATCH_LAYER and not served:  # the flash prefill's
+            served.update(x=xt.clone(), router=router)
         gates, experts = route(c, xt, router)
         routed.append(experts)
         return gates, experts
 
+    def capture_keep(*args):
+        out = local_dispatch(*args)
+        kept.append(out[3])
+        return out
+
     def taken() -> list:
-        out = [e.sort(dim=1).values for e in routed]
+        out = list(routed)
         routed.clear()
         return out
 
     ctx_f, ctx_r = Ctx(cfg), Ctx(dataclasses.replace(cfg, attn_impl="reference"))
     max_len = s + LM_TEACHER_STEPS
-    moe._route = capture
+    moe._route, moe._local_dispatch = capture, capture_keep
     try:
         lf, cf = api.prefill(ctx_f, model, tokens, max_len)
+        moe._local_dispatch = local_dispatch
         ef = taken()
         lr, cr = api.prefill(ctx_r, model, tokens, max_len)
         er = taken()
@@ -1200,17 +1218,24 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
             lr, cr = api.decode_step(ctx_r, model, t, cr)
             pairs.append((f"teacher-forced decode step {i}", lf, lr, df, taken()))
     finally:
-        moe._route = route
+        moe._route, moe._local_dispatch = route, local_dispatch
 
-    # the prefill's drop share, on the host from the flash branch's routing
+    # the prefill's drop share, on the host from the flash branch's routing:
+    # each expert keeps its first `cap` slots in slot order
     cap = moe._capacity(cfg, b * s, cfg.num_experts)
-    dropped = [int(np.maximum(np.bincount(e.cpu().numpy().ravel(), minlength=cfg.num_experts)
-                              - cap, 0).sum()) for e in ef]
+    want = [kept_slots(e.cpu().numpy().ravel(), cap) for e in ef]
+    dropped = [int((~w).sum()) for w in want]
     routed_slots = b * s * cfg.experts_per_token
     print(f"  prefill drop share: {sum(dropped) / (routed_slots * len(dropped))} of "
           f"{routed_slots} routed slots a layer (capacity {cap}); per layer "
           f"{[round(d / routed_slots, 5) for d in dropped]}")
+    smoke.check(len(kept) == cfg.num_layers, f"{len(kept)} MoE dispatches in a {cfg.num_layers}-layer prefill")
+    differ = [i for i, (k, w) in enumerate(zip(kept, want)) if not np.array_equal(k.cpu().numpy(), w)]
+    smoke.check(not differ, f"prefill layers {differ}: the kept slots differ from the host recount")
+    print(f"  kept slots equal the host recount (first {cap} of each expert's, in slot order) "
+          f"in all {len(kept)} layers")
     # tokens routed to another expert set by the two branches, a layer each
+    ef, er = ([e.sort(dim=1).values for e in es] for es in (ef, er))
     flips = [(f != r).any(dim=1) for f, r in zip(ef, er)]
     print(f"  prefill tokens (of {b * s}) with another expert set in the two branches, per layer: "
           f"{[int(f.sum()) for f in flips]}")
@@ -1220,7 +1245,8 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
         a, r = a.float(), r.float()
         smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(r).all()), f"{what}: non-finite logits")
         if what.startswith("teacher"):
-            step_flips = torch.stack([(f != g).any(dim=1) for f, g in zip(df, dr)]).any(dim=0)
+            step_flips = torch.stack([(f.sort(dim=1).values != g.sort(dim=1).values).any(dim=1)
+                                      for f, g in zip(df, dr)]).any(dim=0)
             flipped_seq |= step_flips
             print(f"  {what}: {int(step_flips.sum())} of {b} rows took another expert set in some layer")
         row_err = (a - r).abs().flatten(1).amax(dim=1)
@@ -1234,7 +1260,7 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
             if not bool(flipped_seq[row]):  # no flip in this sequence so far
                 unexplained.append((what, row))
     out = {"flips": [int(f.sum()) for f in flips], "drop_share": sum(dropped) / (routed_slots * len(dropped)),
-           "max_abs_diff": worst, "held_at": f"{cfg.num_layers} layers"}
+           "max_abs_diff": worst, "held_at": f"{cfg.num_layers} layers", "served": served}
     if not over:
         print(f"  held at full depth ({cfg.num_layers} layers) within {LM_LOGIT_ATOL}")
         return out
@@ -1263,6 +1289,15 @@ def profile_moe_lm(lm: dict) -> None:
         f"{name} decode step ({LM_BATCH} rows, {LM_PROMPT} cached)":
             lambda: api.decode_step(ctx, model, tokens[:, -1:], caches),
     })
+
+
+def kept_slots(experts, cap: int) -> np.ndarray:
+    """The slots a capacity binning keeps: each expert's first ``cap`` in
+    slot order (numpy, independent of the program's ranks)."""
+    keep = np.zeros(experts.size, dtype=bool)
+    for e in np.unique(experts):
+        keep[np.flatnonzero(experts == e)[:cap]] = True
+    return keep
 
 
 def cap8(capacity_factor: float, expected_slots: float) -> int:
@@ -1311,11 +1346,13 @@ def recount_dropped(mode: str, ids: list, n_experts: int, k: int, cf: float) -> 
     return dropped + sum(over_capacity(arrived[o], lambda e: e, cap_e)[0] for o in range(p))
 
 
-def moe_dispatch_path(smoke: Smoke, experts: tuple, dev) -> None:
+def moe_dispatch_path(smoke: Smoke, experts: tuple, served: "dict | None", dev) -> None:
     """``moe_dispatch`` at the moonshot layer width through ``engine.run`` on
-    ``LocalSubstrate`` on the card: x (8192, 2048) bf16 and a router
-    (2048, 64) float32 at the init scale from numpy seed 3, top-6, capacity
-    factor 1.25, layer 0's experts of the served model. Each mode's result
+    ``LocalSubstrate`` on the card, top-6, capacity factor 1.25, the experts
+    of the served model's layer :data:`MOE_DISPATCH_LAYER`, on two inputs:
+    x (8192, 2048) bf16 and a router (2048, 64) float32 at the init scale
+    from numpy seed 3, and that layer's input and router in the served
+    prefill (``served``), where every mode drops slots. Each mode's result
     equal to ``moe_dispatch_reference``, its dropped slots equal to
     :func:`recount_dropped` on the card's routing, its traffic to
     ``moe_dispatch_traffic`` of the routing replay; ``"auto"`` picks the
@@ -1337,46 +1374,53 @@ def moe_dispatch_path(smoke: Smoke, experts: tuple, dev) -> None:
                         device=dev).to(torch.bfloat16)
     router = torch.as_tensor(0.02 * rng.standard_normal((cfg.d_model, cfg.num_experts),
                                                         dtype=np.float32), device=dev)
+    cases = [("i.i.d. x (seed 3)", x, router, False)]
+    if served is not None:
+        cases.append((f"layer {MOE_DISPATCH_LAYER}'s input in the served prefill", served["x"],
+                      served["router"], True))
     w_gate, w_up, w_down = experts
     sub, cache = LocalSubstrate(dev), PlanCache()
-    traffic = {}
-    for label, st, nodelets in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE), 8),
-                                ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE), 8),
-                                ("tp", MigratoryStrategy(), 1)):
-        inputs = MoEDispatchInputs(x, router, nodelets=nodelets, experts_per_token=k,
-                                   capacity_factor=cf, w_gate=w_gate, w_up=w_up, w_down=w_down)
-        y, report = run(Request("moe_dispatch", inputs, st, sub), cache=cache)
-        print("report " + report.to_json(), flush=True)
-        print(f"  moe_dispatch {label}, nodelets {nodelets}: {report.seconds * 1e3:.3f} ms, "
-              f"{report.effective_gbps:.1f} GB/s of bytes moved, dropped "
-              f"{report.metrics['dropped_slots']} of {report.metrics['routed_slots']} slots "
-              f"(first call {report.compile_seconds * 1e3:.1f} ms)", flush=True)
-        smoke.check(report.metrics["dispatch_mode"] == label, f"moe_dispatch: mode {report.metrics}")
-        smoke.check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all()),
-                    f"moe_dispatch {label}: output {tuple(y.shape)} not finite or out of shape")
-        smoke.check(torch.equal(y, moe_dispatch_reference(inputs, st)),
-                    f"moe_dispatch {label}: engine.run differs from moe_dispatch_reference")
-        t_shard = x.shape[0] // nodelets
-        with torch.inference_mode():
-            ids = [route(x[i * t_shard:(i + 1) * t_shard], router, k)[1].flatten().tolist()
-                   for i in range(nodelets)]
-        want = recount_dropped(label, ids, cfg.num_experts, k, cf)
-        smoke.check(report.metrics["dropped_slots"] == want,
-                    f"moe_dispatch {label}: {report.metrics['dropped_slots']} dropped, recount {want}")
-        smoke.check(report.traffic == moe_dispatch_traffic(inputs, st, _routing_replay(inputs)),
-                    f"moe_dispatch {label}: traffic {report.traffic} is not the replay's")
-        traffic[label] = (report.traffic.total_bytes, inputs)
-    inputs = traffic["ep_push"][1]
-    pick = choose_strategy("moe_dispatch", inputs, sub)
-    _, report = run(Request("moe_dispatch", inputs, "auto", sub), cache=cache)
-    print(f"  auto: {report.metrics['dispatch_mode']}, cache_hit {report.cache_hit}, "
-          f"traffic {report.traffic.total_bytes} (ep_push {traffic['ep_push'][0]}, "
-          f"ep_pull {traffic['ep_pull'][0]})")
-    smoke.check(report.metrics["dispatch_mode"] == ("ep_pull" if pick.comm == Comm.MIGRATE
-                                                    else "ep_push"), "auto: not choose_strategy's pick")
-    smoke.check(report.traffic.total_bytes == min(traffic["ep_push"][0], traffic["ep_pull"][0]),
-                "auto: not the least modeled traffic")
-    smoke.check(report.cache_hit, "auto: not a plan-cache hit")
+    for case, x, router, must_drop in cases:
+        print(f"  {case}:")
+        traffic = {}
+        for label, st, nodelets in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE), 8),
+                                    ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE), 8),
+                                    ("tp", MigratoryStrategy(), 1)):
+            inputs = MoEDispatchInputs(x, router, nodelets=nodelets, experts_per_token=k,
+                                       capacity_factor=cf, w_gate=w_gate, w_up=w_up, w_down=w_down)
+            y, report = run(Request("moe_dispatch", inputs, st, sub), cache=cache)
+            print("report " + report.to_json(), flush=True)
+            print(f"  moe_dispatch {label}, nodelets {nodelets}: {report.seconds * 1e3:.3f} ms, "
+                  f"{report.effective_gbps:.1f} GB/s of bytes moved, dropped "
+                  f"{report.metrics['dropped_slots']} of {report.metrics['routed_slots']} slots "
+                  f"(first call {report.compile_seconds * 1e3:.1f} ms)", flush=True)
+            smoke.check(report.metrics["dispatch_mode"] == label, f"moe_dispatch: mode {report.metrics}")
+            smoke.check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all()),
+                        f"moe_dispatch {label}: output {tuple(y.shape)} not finite or out of shape")
+            smoke.check(torch.equal(y, moe_dispatch_reference(inputs, st)),
+                        f"moe_dispatch {label}: engine.run differs from moe_dispatch_reference")
+            t_shard = x.shape[0] // nodelets
+            with torch.inference_mode():
+                ids = [route(x[i * t_shard:(i + 1) * t_shard], router, k)[1].flatten().tolist()
+                       for i in range(nodelets)]
+            want = recount_dropped(label, ids, cfg.num_experts, k, cf)
+            smoke.check(report.metrics["dropped_slots"] == want,
+                        f"moe_dispatch {label}: {report.metrics['dropped_slots']} dropped, recount {want}")
+            smoke.check(want > 0 or not must_drop, f"moe_dispatch {label}: {case} dropped no slot")
+            smoke.check(report.traffic == moe_dispatch_traffic(inputs, st, _routing_replay(inputs)),
+                        f"moe_dispatch {label}: traffic {report.traffic} is not the replay's")
+            traffic[label] = (report.traffic.total_bytes, inputs)
+        inputs = traffic["ep_push"][1]
+        pick = choose_strategy("moe_dispatch", inputs, sub)
+        _, report = run(Request("moe_dispatch", inputs, "auto", sub), cache=cache)
+        print(f"  auto: {report.metrics['dispatch_mode']}, cache_hit {report.cache_hit}, "
+              f"traffic {report.traffic.total_bytes} (ep_push {traffic['ep_push'][0]}, "
+              f"ep_pull {traffic['ep_pull'][0]})")
+        smoke.check(report.metrics["dispatch_mode"] == ("ep_pull" if pick.comm == Comm.MIGRATE
+                                                        else "ep_push"), "auto: not choose_strategy's pick")
+        smoke.check(report.traffic.total_bytes == min(traffic["ep_push"][0], traffic["ep_pull"][0]),
+                    "auto: not the least modeled traffic")
+        smoke.check(report.cache_hit, "auto: not a plan-cache hit")
     try:
         run(Request("moe_dispatch", inputs, None, CudaSubstrate(dev)), cache=cache)
     except OpNotSupportedError as e:

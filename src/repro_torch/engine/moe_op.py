@@ -37,10 +37,10 @@ import torch
 
 from ..core.cost import CostEstimate
 from ..core.strategies import Layout, MigratoryStrategy, Scheme, TrafficStats, strategy_grid
-from ..core.util import round_up
 from ..device import to_numpy
 from ..models.moe import (
-    _positions_in_expert, capacity_buffers, dispatch_from_strategy, expert_ffn, gather_rows, route,
+    _cap, _positions_in_expert, capacity_buffers, dispatch_from_strategy, expert_ffn, gather_rows,
+    route,
 )
 from .api import ExecutionPlan, plan_key
 from .registry import OpSpec, kernel, register_op
@@ -103,11 +103,6 @@ class MoEDispatchInputs:
                 )
 
 
-def _cap(capacity_factor: float, expected_slots: float) -> int:
-    """Static buffer capacity: expected slot count x factor, 8-aligned."""
-    return max(8, round_up(int(capacity_factor * expected_slots), 8))
-
-
 def derive_mode(inputs: MoEDispatchInputs, strategy: MigratoryStrategy) -> str:
     """The strategy -> dispatch-mode mapping, shared with models/moe.py."""
     return dispatch_from_strategy(
@@ -116,11 +111,6 @@ def derive_mode(inputs: MoEDispatchInputs, strategy: MigratoryStrategy) -> str:
 
 
 # -- per-shard pieces -----------------------------------------------------------
-
-
-def _route_shard(x_s: torch.Tensor, router: torch.Tensor, *, k: int):
-    """x_s (t, D) -> normalized top-k gates (t, k) in x's type, experts (t, k)."""
-    return route(x_s, router, k)
 
 
 def _pull_combine(vals: torch.Tensor, gates: torch.Tensor, *, t: int, k: int) -> torch.Tensor:
@@ -134,7 +124,7 @@ def _tp_shard(x_s, router, ffn=None, *, k, num_experts, cap):
     into (E, cap, D) buffers, the (optional) expert FFN, and a gate-weighted
     gather back."""
     t = x_s.shape[0]
-    gates, experts = _route_shard(x_s, router, k=k)
+    gates, experts = route(x_s, router, k)
     ef = experts.reshape(-1)
     pos = _positions_in_expert(ef, num_experts)
     keep = pos < cap
@@ -147,7 +137,7 @@ def _tp_shard(x_s, router, ffn=None, *, k, num_experts, cap):
 def _push_pre(x_s, router, *, k, P, e_local, cap_pair):
     """Sender side of ep_push: bin local slots by destination owner into the
     (P_dst, cap_pair, D) send buffer and its expert-id plane (-1 pad)."""
-    gates, experts = _route_shard(x_s, router, k=k)
+    gates, experts = route(x_s, router, k)
     ef = experts.reshape(-1)
     owner = ef // e_local
     pos = _positions_in_expert(owner, P)
@@ -250,7 +240,7 @@ def _dispatch_local(x, router, *ws, mode, nodelets, experts_per_token, capacity_
         back = out.transpose(0, 1)  # the return all_to_all
         return torch.cat([_push_post(back[s], *pre[s][2:], t=t, k=k) for s in range(P)])
     if mode == "ep_pull":
-        routed = [_route_shard(xs[s], router, k=k) for s in range(P)]
+        routed = [route(xs[s], router, k) for s in range(P)]
         eg = torch.cat([experts.reshape(-1) for _, experts in routed])  # stripe-major
         owned = [_pull_owner(x, eg, o, _ffn_shard(ffn, o, e_local), k=k, e_local=e_local,
                              cap_e=cap_e)
@@ -333,7 +323,7 @@ def _routing_replay(inputs: MoEDispatchInputs) -> dict[str, Any]:
     t = T // P
     xs = inputs.x.reshape(P, t, D)
     with torch.inference_mode():
-        experts = torch.stack([_route_shard(xs[s], inputs.router, k=k)[1] for s in range(P)])
+        experts = torch.stack([route(xs[s], inputs.router, k)[1] for s in range(P)])
     ef = to_numpy(experts).reshape(P, t * k)  # slot stream per source shard
     out: dict[str, Any] = {"routed_slots": T * k}
     if P > 1 and E % P == 0:

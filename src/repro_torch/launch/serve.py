@@ -22,8 +22,7 @@ twice the QoS weight.
         --ops-rate 100 --ops-admission reject [--device cpu]
 
 MoE decode path (``--decode-serve``): continuous-batched decode of the
-``serve-moe`` config (``--decode-arch`` names another MoE config, e.g.
-``moonshot-v1-16b-a3b`` at full width) through ``DecodeServer``, each step
+``serve-moe`` config through ``DecodeServer``, each step
 one request through the ``EngineService`` worker loop with an SLO target,
 the served tokens checked token-for-token against the single-process oracle.
 
@@ -197,10 +196,9 @@ def decode_serve_demo(
     nodelets: int = 4,
     dispatch: str = "ep_pull",
     seed: int = 0,
-    arch: str = "serve-moe",
     device="cuda",
 ) -> dict:
-    """Continuous-batched MoE decode serving: the config's expert FFNs run
+    """Continuous-batched MoE decode serving: serve-moe's expert FFNs run
     behind ``moe_dispatch`` transport, every decode step travels as one
     :class:`Request` through the worker-loop service (on ``LocalSubstrate``
     on ``device``) with an SLO target, and the served tokens are
@@ -210,7 +208,7 @@ def decode_serve_demo(
     from ..models.transformer import moe_decode_params
 
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config("serve-moe")
     params = moe_decode_params(cfg, seed, dev)
     strategy = {
         "ep_pull": MigratoryStrategy(comm=Comm.MIGRATE),
@@ -277,8 +275,6 @@ def main(argv=None) -> None:
                     help="executor-pool width for --ops-async (int or 'auto')")
     ap.add_argument("--decode-serve", action="store_true",
                     help="continuous-batched MoE decode serving with SLO stats")
-    ap.add_argument("--decode-arch", default="serve-moe",
-                    help="the MoE config --decode-serve serves")
     ap.add_argument("--serve-seqs", type=int, default=8)
     ap.add_argument("--serve-dispatch", choices=("ep_pull", "ep_push", "tp"), default="ep_pull")
     ap.add_argument("--serve-nodelets", type=int, default=4)
@@ -290,7 +286,7 @@ def main(argv=None) -> None:
         workers = args.ops_workers if args.ops_workers == "auto" else int(args.ops_workers)
         report = decode_serve_demo(
             args.serve_seqs, dispatch=args.serve_dispatch, nodelets=args.serve_nodelets,
-            slo_ms=args.serve_slo_ms, arch=args.decode_arch, device=args.device,
+            slo_ms=args.serve_slo_ms, device=args.device,
             workers=max(2, workers) if workers != "auto" else workers)
         if not report["oracle_parity"]:
             raise SystemExit("served tokens differ from the oracle's")

@@ -151,9 +151,16 @@ def _local_combine(cfg, out_buf, gates, ef, pos, keep, t, d):
     return (vals * gates.reshape(-1, 1)).reshape(t, cfg.experts_per_token, d).sum(1)
 
 
+def _cap(capacity_factor: float, expected_slots: float) -> int:
+    """Static buffer capacity: expected slot count x factor, 8-aligned. The
+    engine's ``moe_dispatch`` sizes its buffers with it too."""
+    return max(8, round_up(int(capacity_factor * expected_slots), 8))
+
+
 def _capacity(cfg: ModelConfig, tokens: int, experts: int) -> int:
-    c = int(cfg.capacity_factor * tokens * cfg.experts_per_token / experts)
-    return max(8, round_up(c, 8))
+    # the product in the JAX package's order, cf * tokens * k / E: at some
+    # ratios cf * (tokens * k / E) rounds to one less before the truncation
+    return _cap(1.0, cfg.capacity_factor * tokens * cfg.experts_per_token / experts)
 
 
 def moe_sublayer(
