@@ -79,6 +79,20 @@ result, without them or outside a checkout of the repository. In order:
    ``EngineService`` worker loop at W = 1 and 2 for serve-moe (float32) and
    moonshot's one-block decode params (bf16, full width), every mode's
    tokens equal to the oracle's (``decode {...}`` lines);
+7b. trains (phases "LM train ..."): llama3.2-3b at full width (28 layers,
+   bf16, weights from seed 0 on the card, remat on, the reference attention
+   branch: the flash kernel has no backward) for 4 ``api.train_step``s on
+   ``SyntheticTokens`` batches of 4 x 2048, with a ``train {...}`` line (step
+   ms, tokens/s, ``apply_updates`` ms timed alone, peak GiB, losses and grad
+   norms, all finite) and one step under torch.profiler; the grads of
+   ``loss_fn`` (remat, chunked CE, checkpointed q tiles) against the plain
+   path's (no remat, dense attention, full-logits cross-entropy) at llama's
+   widths cut to 2 layers in float32; the reduced float32 config trained
+   5 steps on the card and on the CPU (losses equal within 1e-4) and under
+   ``run_supervised`` on the card with a failure injected at step 8 (one
+   restart, the unfailed run's last losses); moonshot-v1-16b-a3b at full
+   width cut to 2 of 48 layers, bf16, 3 steps (grads through routing and
+   capacity buffers; the forward's drop share printed);
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -168,6 +182,24 @@ MOE_DISPATCH_LAYER = 24
 # float32 as the configs give them; sequences, new tokens each, batch slots
 DECODE_CONFIGS = (("serve-moe", 4), ("moonshot-v1-16b-a3b", 8))
 DECODE_SEQS, DECODE_NEW, DECODE_CAPACITY = 8, 8, 8
+# training at full width: batch x sequence (8,192 tokens a step), AdamW, the
+# steps of llama3.2-3b and of moonshot-v1-16b-a3b cut to 2 of its 48 layers
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=4)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
+# remat + chunked CE + checkpointed q tiles against the plain path at
+# llama's widths cut to 2 layers, float32 without TF32: each parameter's
+# relative Frobenius error. The two do the same float32 operations summed in
+# other orders (the CE by chunks, scores by q tiles, the embedding's grad by
+# atomics), a few ulps; a dropped or doubled activation is off by whole
+# units
+REMAT_LAYERS, REMAT_GRAD_RTOL = 2, 1e-4
+# the reduced float32 LM trained on the card and on the CPU, and the
+# supervised run's recovery: losses, relative. cuBLAS sums in other orders
+# than the CPU's BLAS, and the backward of a row gather (the embedding; the
+# MoE capacity buffers) adds with float atomics in no fixed order on the
+# card, so grads agree to rounding, not bit for bit
+REDUCED_TRAIN_STEPS, TRAIN_LOSS_RTOL = 5, 1e-4
 
 
 def card_line() -> str:
@@ -291,6 +323,13 @@ def main() -> int:
         del experts, held
         torch.cuda.empty_cache()
     smoke.phase("DecodeServer through EngineService", decode_server_path, smoke, dev)
+    torch.cuda.empty_cache()
+    smoke.phase(f"LM train ({LM_ARCH}, full width)", lm_train_path, smoke, dev)
+    smoke.phase("LM train: remat and chunked loss vs the plain loss", remat_vs_plain, smoke, dev)
+    smoke.phase(f"LM train (reduced {LM_ARCH}): card vs CPU, supervised recovery",
+                reduced_train_path, smoke, dev)
+    smoke.phase(f"LM train ({MOE_ARCH}, full width, {MOE_TRAIN_LAYERS} of 48 layers)",
+                moe_train_path, smoke, dev)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None and wide is not None:
@@ -1609,9 +1648,9 @@ def profile_requests(inputs: dict, lm: "dict | None") -> None:
     profile_calls(calls)
 
 
-def profile_calls(calls: dict) -> None:
+def profile_calls(calls: dict, top: int = 4) -> None:
     """Each warm call once under torch.profiler: device busy time against
-    wall time, kernel count and the four largest kernels."""
+    wall time, kernel count and the ``top`` largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, call in calls.items():
@@ -1629,9 +1668,9 @@ def profile_calls(calls: dict) -> None:
                   "(the profiler recorded no kernel)", flush=True)
             continue
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+        largest = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
         share = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-                          for e in top)
+                          for e in largest)
         print(f"  {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
               f"(idle {100 * (1 - busy_ms / wall_ms):.1f} %), {sum(e.count for e in events)} kernels; "
               f"{share}", flush=True)
@@ -1947,6 +1986,253 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict,
     if moe is not None:  # MHA: 16 kv heads for 16 q heads, 64 (B x H) planes
         flash_row(f"{MOE_ARCH} layer 0 of the prefill", *fold_qkv(*moe["qkv"]), *moe["qkv"],
                   moe["launches"], launches_counted_in=f"LM serve {MOE_ARCH}, one prefill")
+
+
+# -- training ------------------------------------------------------------------
+
+
+def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
+              profile: bool = False, drop_share: bool = False) -> dict:
+    """``steps`` of ``api.train_step`` on ``cfg`` (weights from seed 0 on the
+    card) over the synthetic stream at :data:`TRAIN_BATCH` x
+    :data:`TRAIN_SEQ`, AdamW as :data:`TRAIN_OPT`: each step's milliseconds
+    (host clock to the loss on the host), loss and grad norm, the peak
+    memory; ``timed_apply``: then ``apply_updates`` alone on one more step's
+    grads, twice, each between synchronizes; ``profile``: one more step
+    under torch.profiler; ``drop_share``: the MoE layers' share of routed
+    slots past capacity in step 0's forward. Prints a ``train {...}`` line;
+    every loss and grad norm must be finite."""
+    import repro_torch.models.moe as moe
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig, apply_updates
+
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, seed=0, device=dev)
+    n_weights = sum(p.numel() for p in model.parameters())
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    state = api.init_opt(cfg, model, opt_cfg)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}, remat {cfg.remat}, attention "
+          f"{cfg.attn_impl}): {n_weights} weights and their float32 moments on the card in "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          "allocated", flush=True)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    ctx = Ctx(cfg)
+    stats = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "weights": n_weights,
+             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+    if drop_share:
+        dispatch, kept = moe._local_dispatch, []
+
+        def capture(*args):
+            out = dispatch(*args)
+            kept.append(out[3])
+            return out
+
+        moe._local_dispatch = capture
+        try:
+            with torch.no_grad():
+                api.loss_fn(ctx, model, data.torch_batch(0, dev))
+        finally:
+            moe._local_dispatch = dispatch
+        stats["capacity"] = moe._capacity(cfg, TRAIN_BATCH * TRAIN_SEQ, cfg.num_experts)
+        stats["drop_share"] = [float((~k).float().mean()) for k in kept]
+        smoke.check(len(kept) == cfg.num_layers, f"{len(kept)} MoE dispatches in {cfg.num_layers} layers")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms, losses, norms = [], [], []
+    for step in range(steps):
+        batch = data.torch_batch(step, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, metrics = api.train_step(ctx, model, state, batch, opt_cfg)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    median = float(np.median(step_ms[1:]))
+    stats.update(step_ms=step_ms, step_ms_median_after_first=median,
+                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median * 1e3, loss=losses, grad_norm=norms)
+    if timed_apply:
+        named = dict(model.named_parameters())
+        loss = api.loss_fn(ctx, model, data.torch_batch(steps, dev))
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        del loss
+        apply_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, _ = apply_updates(model, state, grads, opt_cfg)
+            torch.cuda.synchronize()
+            apply_ms.append((time.perf_counter() - t0) * 1e3)
+        stats["apply_updates_ms"] = apply_ms
+        del grads, named
+    stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    print("  train " + json.dumps(stats), flush=True)
+    smoke.check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"{cfg.name}: non-finite loss or grad norm: {losses} {norms}")
+    if profile:
+        batch = data.torch_batch(steps + 1, dev)
+        box = [state]
+
+        def one_step():
+            _, box[0], metrics = api.train_step(ctx, model, box[0], batch, opt_cfg)
+            return float(metrics["loss"])
+
+        profile_calls({f"{cfg.name} train step ({TRAIN_BATCH}x{TRAIN_SEQ}, "
+                       f"{cfg.num_layers} layers)": one_step}, top=8)
+    del model, state
+    torch.cuda.empty_cache()
+    return stats
+
+
+def lm_train_path(smoke: Smoke, dev) -> dict:
+    """llama3.2-3b at full width: bf16, remat on, the reference attention
+    branch (the flash kernel has no backward), :data:`TRAIN_STEPS` steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), remat=True, attn_impl="reference")
+    return train_run(smoke, dev, cfg, TRAIN_STEPS, timed_apply=True, profile=True)
+
+
+def remat_vs_plain(smoke: Smoke, dev) -> None:
+    """The grads of ``loss_fn`` (remat, the chunked CE, the q-chunked
+    attention with each tile checkpointed) against the plain path's (no
+    remat, dense attention, full-logits ``cross_entropy``) on one batch of
+    :data:`TRAIN_BATCH` x :data:`TRAIN_SEQ`, at llama3.2-3b's widths cut to
+    :data:`REMAT_LAYERS` layers, in float32 with TF32 off: each parameter's
+    relative Frobenius error within :data:`REMAT_GRAD_RTOL`."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import Ctx, api
+    from repro_torch.models.transformer import backbone
+
+    smoke.check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=REMAT_LAYERS, dtype="float32",
+                              remat=True, attn_impl="reference")
+    model = api.init_params(cfg, seed=0, device=dev)
+    weights = list(model.parameters())
+    tokens = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH)).torch_batch(0, dev)["tokens"].long()
+    tiles = []
+    checkpoint = layers.checkpoint
+
+    def counting(fn, *args, **kw):
+        tiles.append(fn.__name__)
+        return checkpoint(fn, *args, **kw)
+
+    layers.checkpoint = counting
+    try:
+        t0 = time.perf_counter()
+        loss = api.loss_fn(Ctx(cfg), model, {"tokens": tokens})
+        g_remat = torch.autograd.grad(loss, weights)
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        remat_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        layers.checkpoint = checkpoint
+    n_tiles = tiles.count("tile")
+    budget = layers._SCORE_BYTE_BUDGET
+    layers._SCORE_BYTE_BUDGET = 1 << 62  # dense attention: no q tiles
+    try:
+        t0 = time.perf_counter()
+        x = backbone(Ctx(dataclasses.replace(cfg, remat=False)), model, tokens[:, :-1])
+        plain = F.cross_entropy((x @ model.lm_head).float().flatten(0, 1), tokens[:, 1:].flatten())
+        g_plain = torch.autograd.grad(plain, weights)
+        plain = float(plain.detach())
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        layers._SCORE_BYTE_BUDGET = budget
+    errs = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
+            for (name, _), a, b in zip(model.named_parameters(), g_remat, g_plain)}
+    worst = max(errs, key=errs.get)
+    print(f"  {cfg.name} at {cfg.num_layers} layers, float32, {TRAIN_BATCH}x{TRAIN_SEQ}: remat loss "
+          f"{loss} ({n_tiles} attention tiles checkpointed; forward + grads {remat_ms:.1f} ms), "
+          f"plain loss {plain} ({plain_ms:.1f} ms); grads' relative Frobenius error: largest "
+          f"{errs[worst]} ({worst}), median {float(np.median(list(errs.values())))}", flush=True)
+    smoke.check(n_tiles > 0, "the q-chunked attention checkpointed no tile")
+    smoke.check(abs(loss - plain) <= REMAT_GRAD_RTOL * abs(plain), f"remat loss {loss} vs plain {plain}")
+    smoke.check(errs[worst] <= REMAT_GRAD_RTOL, f"{worst}: remat grads differ from the plain path's by "
+                                                f"{errs[worst]} > {REMAT_GRAD_RTOL}")
+    del model, weights, g_remat, g_plain, x
+    torch.cuda.empty_cache()
+
+
+def reduced_train_path(smoke: Smoke, dev) -> None:
+    """The reduced float32 llama3.2-3b: :data:`REDUCED_TRAIN_STEPS`
+    ``train_step``s on the card and on the CPU from the same weights and
+    batches (losses within :data:`TRAIN_LOSS_RTOL`); then ``run_supervised``
+    on the card into a temporary directory, 14 steps unfailed and with a
+    failure injected at step 8: one restart, and the last 3 losses equal to
+    the unfailed run's within :data:`TRAIN_LOSS_RTOL`."""
+    import tempfile
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import SupervisorConfig, run_supervised
+
+    cfg = reduced_config(LM_ARCH)
+    ctx = Ctx(cfg)
+    cpu_model = api.init_params(cfg, seed=0, device="cpu")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=14)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+    losses = {}
+    for where in ("cpu", dev):
+        model = api.init_params(cfg, seed=0, device=where)
+        model.load_state_dict(cpu_model.state_dict())
+        state, losses[str(where)] = api.init_opt(cfg, model, opt_cfg), []
+        for step in range(REDUCED_TRAIN_STEPS):
+            _, state, metrics = api.train_step(ctx, model, state, data.torch_batch(step, where), opt_cfg)
+            losses[str(where)].append(float(metrics["loss"]))
+    card, cpu = losses[str(dev)], losses["cpu"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    print(f"  reduced {cfg.name} float32, {REDUCED_TRAIN_STEPS} steps: card {card}, CPU {cpu}; "
+          f"largest relative difference {err}", flush=True)
+    smoke.check(err <= TRAIN_LOSS_RTOL, f"card and CPU losses differ by {err} > {TRAIN_LOSS_RTOL}")
+
+    def build():
+        params = api.init_params(cfg, seed=0, device=dev)
+        params.load_state_dict(cpu_model.state_dict())
+        return params, api.init_opt(cfg, params, opt_cfg), (
+            lambda p, o, b: api.train_step(ctx, p, o, b, opt_cfg))
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for name, fail_at in (("unfailed", None), ("failed", 8)):
+            sup = SupervisorConfig(ckpt_dir=f"{tmp}/{name}", ckpt_every=5, total_steps=14)
+            runs[name] = run_supervised(sup, build=build, data_for_step=lambda s: data.torch_batch(s, dev),
+                                        fail_at=fail_at)
+    a, b = runs["unfailed"], runs["failed"]
+    print(f"  run_supervised on the card, 14 steps: unfailed restarts {a.restarts}, last losses "
+          f"{a.losses[-3:]}; failure at step 8: restarts {b.restarts}, {len(b.losses)} steps run, "
+          f"last losses {b.losses[-3:]}", flush=True)
+    smoke.check(a.restarts == 0 and b.restarts == 1, f"restarts {a.restarts}, {b.restarts}")
+    smoke.check(all(abs(x - y) <= TRAIN_LOSS_RTOL * abs(y) for x, y in zip(b.losses[-3:], a.losses[-3:])),
+                "the recovered run's last losses differ from the unfailed run's")
+
+
+def moe_train_path(smoke: Smoke, dev) -> dict:
+    """moonshot-v1-16b-a3b at full width cut to :data:`MOE_TRAIN_LAYERS`
+    layers, bf16, :data:`MOE_TRAIN_STEPS` steps: grads through the routing
+    and the capacity buffers (64 experts, top-6), the forward's drop share
+    printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS, remat=True,
+                              attn_impl="reference")
+    return train_run(smoke, dev, cfg, MOE_TRAIN_STEPS, drop_share=True)
 
 
 def finish(smoke: Smoke) -> int:

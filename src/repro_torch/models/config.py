@@ -49,7 +49,7 @@ class ModelConfig:
     num_patches: int = 0
 
     dtype: str = "bfloat16"
-    remat: bool = True  # activation checkpointing in the JAX train_step; no counterpart here
+    remat: bool = True  # activation checkpointing of each block under grad (training)
     # padded-head tensor parallelism of the JAX package's mesh path; the port
     # has no mesh, so nothing reads it here (kept so both packages' configs
     # have the same fields)

@@ -1,5 +1,5 @@
-"""Shared transformer layers: norms, RoPE, GQA attention (prefill and cache
-decode), MLP.
+"""Shared transformer layers: norms, RoPE, GQA attention (training, prefill
+and cache decode), MLP.
 
 Plain functions do the work, over any object whose attributes hold the
 parameters; the ``nn.Module`` classes here only hold them (same names and
@@ -11,10 +11,12 @@ no mesh: :class:`Ctx` holds the config only. Activations are
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
 from .config import ModelConfig
@@ -36,6 +38,14 @@ def _normal(shape, cfg: ModelConfig, gen: torch.Generator, device, dtype=None) -
     with torch.no_grad():
         t.normal_(0.0, 0.02, generator=gen)
     return nn.Parameter(t)
+
+
+def remat(fn):
+    """``fn`` under a non-reentrant activation checkpoint: its activations
+    are recomputed in the backward pass instead of kept (the JAX package's
+    ``jax.checkpoint`` with ``nothing_saveable``). Nothing in the model draws
+    random numbers, so no RNG state is kept."""
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
 # -- norms ---------------------------------------------------------------------
@@ -134,10 +144,21 @@ def _attend(
 ) -> torch.Tensor:
     """Attention dispatch: the flash kernel (prefill: static masks), dense,
     or q-chunked dense (a loop over query blocks whose score tiles each fit
-    ``_SCORE_BYTE_BUDGET``)."""
+    ``_SCORE_BYTE_BUDGET``; under grad each tile is checkpointed, so the
+    backward recomputes its scores instead of keeping every tile's softmax).
+
+    The flash kernel has no backward (neither has the JAX package's), and
+    its output carries no ``grad_fn``: with grad enabled and inputs that
+    require grad it raises rather than drop the gradients to q, k and v.
+    Training takes the reference branch."""
     b, sq, hq, dh = q.shape
     skv = k.shape[1]
     if ctx.cfg.attn_impl == "flash" and kv_valid_len is None:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            raise RuntimeError(
+                "attn_impl='flash' under grad: the flash attention kernel has no backward, so "
+                "the gradients to q, k and v would be lost; train with attn_impl='reference'"
+            )
         o = flash_attention(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=causal, window=window,
@@ -152,10 +173,12 @@ def _attend(
         cq //= 2
     while sq % cq:
         cq //= 2
-    return torch.cat([
-        _attend_dense(q[:, off:off + cq], k, v, q_offset=off, kv_valid_len=None, **dense)
-        for off in range(0, sq, cq)
-    ], dim=1)
+
+    def tile(qi, k, v, off):
+        return _attend_dense(qi, k, v, q_offset=off, kv_valid_len=None, **dense)
+
+    run = remat(tile) if torch.is_grad_enabled() else tile
+    return torch.cat([run(q[:, off:off + cq], k, v, off) for off in range(0, sq, cq)], dim=1)
 
 
 class Attention(nn.Module):

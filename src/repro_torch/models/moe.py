@@ -12,6 +12,12 @@ Capacity-factor dropping keeps every shape static: a routed slot whose rank
 within its expert reaches the capacity is dropped. :func:`capacity_buffers`
 bins the slots without a host sync and without float atomics, so decode
 does not sync once a layer and the buffers are the same on every run.
+
+Under grad, gradients flow through the gates (softmax, the stable top-k's
+values, the renormalization), :func:`capacity_buffers` and
+:func:`gather_rows`. The backward of a row gather is an accumulating index
+put, which on the card adds with float atomics in no fixed order: the
+forward is the same on every run, the gradients only to rounding.
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
 """Decoder-only LM, dense (llama, qwen2, mistral, glm4) and MoE (mixtral,
-moonshot) families: per-layer blocks, prefill and KV-cache decode, and the
-flat single-block parameters of the engine's ``moe_decode`` op.
+moonshot) families: per-layer blocks, the training loss, prefill and
+KV-cache decode, and the flat single-block parameters of the engine's
+``moe_decode`` op.
 
 The functions take ``(ctx, params, ...)`` as the JAX package's do, with
 ``params`` a :class:`Transformer`. The context is apart from the weights so
 that one set of weights can run under another config, such as another
 ``attn_impl``. ``prefill`` and ``decode_step`` run under
-``torch.inference_mode()``; activation checkpointing (the JAX package's
-remat) only matters for training and has no counterpart here.
+``torch.inference_mode()``. Under grad with ``cfg.remat`` on,
+:func:`backbone` runs each block under a non-reentrant activation
+checkpoint, as the JAX package remats each scanned block.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ from torch import nn
 
 from ..device import resolve_device
 from .config import ModelConfig
-from .layers import MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, mlp_sublayer, norm
+from .layers import (
+    MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, mlp_sublayer, norm, remat,
+)
+from .losses import chunked_cross_entropy
 from .moe import MoE, moe_sublayer
 
 NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 10: 'LM stack: what is left')"
@@ -84,17 +89,31 @@ def _block(ctx: Ctx, p: Block, x, *, pos_offset=0, cache=None, cache_len=None):
     return x, new_cache
 
 
+def _block_out(ctx: Ctx, p: Block, x):
+    return _block(ctx, p, x)[0]
+
+
 def backbone(ctx: Ctx, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Embed + blocks + final norm (no unembed)."""
+    """Embed + blocks + final norm (no unembed); each block checkpointed
+    under grad when ``cfg.remat``."""
     x = params.embed[tokens]
+    run = remat(_block_out) if ctx.cfg.remat and torch.is_grad_enabled() else _block_out
     for blk in params.blocks:
-        x, _ = _block(ctx, blk, x)
+        x = run(ctx, blk, x)
     return norm(ctx, params.final_norm, x)
 
 
 def forward(ctx: Ctx, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Scoring forward: (B, S) tokens -> (B, S, V) logits."""
     return backbone(ctx, params, tokens) @ params.lm_head
+
+
+def loss_fn(ctx: Ctx, params: Transformer, batch: dict) -> torch.Tensor:
+    """Next-token CE of ``batch["tokens"]`` (B, S + 1): the first S tokens
+    in, the last S as labels, through :func:`chunked_cross_entropy`."""
+    tokens = batch["tokens"].long()
+    x = backbone(ctx, params, tokens[:, :-1])
+    return chunked_cross_entropy(ctx, x, params.lm_head, tokens[:, 1:])
 
 
 # -- serving -------------------------------------------------------------------

@@ -576,3 +576,81 @@ def test_decode_server_on_the_card_equals_the_oracle(cuda, comm, nodelets):
     finally:
         svc.stop()
     assert served == oracle
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Five train steps of the reduced float32 LM on the card and on the CPU
+    from the same weights and batches: the losses agree (TF32 is off) to
+    rounding. The card sums in other orders, and the embedding's backward
+    (an accumulating index put) adds with float atomics in no fixed order,
+    so the grads are not bitwise repeatable there."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config("llama3.2-3b")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4))
+    cpu_model = api.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = api.init_params(cfg, seed=0, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        state, losses[str(dev)] = api.init_opt(cfg, model, opt_cfg), []
+        for step in range(5):
+            _, state, metrics = api.train_step(Ctx(cfg), model, state, data.torch_batch(step, dev), opt_cfg)
+            losses[str(dev)].append(float(metrics["loss"]))
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+
+
+def test_remat_grads_equal_plain_grads_on_the_card(cuda, monkeypatch):
+    """A 2-layer float32 stack: the grads of loss_fn under remat, with the
+    q-chunked attention (a small score budget: 2 tiles) and the chunked CE,
+    equal those of the plain path (no remat, dense attention, full-logits
+    cross-entropy), each parameter's relative Frobenius error within 1e-5."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Ctx, api
+    from repro_torch.models.transformer import backbone
+
+    cfg = dataclasses.replace(reduced_config("llama3.2-3b"), remat=True)
+    model = api.init_params(cfg, seed=0, device=cuda)
+    weights = list(model.parameters())
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 257)), device=cuda)
+    monkeypatch.setattr(layers, "_SCORE_BYTE_BUDGET", 1 << 18)
+    g_remat = torch.autograd.grad(api.loss_fn(Ctx(cfg), model, {"tokens": tokens}), weights)
+    monkeypatch.setattr(layers, "_SCORE_BYTE_BUDGET", 1 << 62)
+    x = backbone(Ctx(dataclasses.replace(cfg, remat=False)), model, tokens[:, :-1])
+    plain = F.cross_entropy((x @ model.lm_head).flatten(0, 1), tokens[:, 1:].flatten())
+    for a, b in zip(g_remat, torch.autograd.grad(plain, weights)):
+        assert float((a - b).norm() / b.norm()) <= 1e-5
+
+
+def test_bf16_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """bf16 weights and float32 moments saved from the card come back bit
+    for bit, onto the card."""
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import api
+    from repro_torch.optim import AdamWConfig
+
+    cfg = reduced_config("llama3.2-3b", "bfloat16")
+    model = api.init_params(cfg, seed=0, device=cuda)
+    state = api.init_opt(cfg, model, AdamWConfig())
+    for t in state.mu.values():
+        t.normal_()
+    store.save(tmp_path, 1, (model, state))
+    fresh = api.init_params(cfg, seed=1, device=cuda)
+    fresh_state = api.init_opt(cfg, fresh, AdamWConfig())
+    store.restore(tmp_path, 1, (fresh, fresh_state))
+    for a, b in zip(model.state_dict().values(), fresh.state_dict().values()):
+        assert b.device.type == "cuda" and b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for n, t in state.mu.items():
+        assert torch.equal(t, fresh_state.mu[n])
