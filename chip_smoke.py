@@ -50,11 +50,10 @@ result, without them or outside a checkout of the repository. In order:
    count set to 0 just before and checked to be 28 (one prefill) just after;
    then holds the flash prefill's logits against the reference attention
    branch on the same weights, and 4 teacher-forced decode steps after each;
-   then serves the reduced config (head dim 32) in bf16 and float32, and the
-   text stack of phi-3-vision-4.2b (head dim 96, full width, 2 layers) in
-   bf16, the same way: flash launches counted, layer 0's q, k, v from the
-   prefill held against the kernel's plain version, the logits held against
-   the reference branch;
+   then serves the reduced config (head dim 32) in bf16 and float32 the
+   same way: flash launches counted, layer 0's q, k, v from the prefill
+   held against the kernel's plain version, the logits held against the
+   reference branch;
 6. holds the ``cuda`` substrate against the ``local`` one on small inputs,
    and ``moe_dispatch``/``moe_decode`` on the card against the CPU;
 7. profiles one request of each op, one LM prefill and one decode step
@@ -79,7 +78,20 @@ result, without them or outside a checkout of the repository. In order:
    ``EngineService`` worker loop at W = 1 and 2 for serve-moe (float32) and
    moonshot's one-block decode params (bf16, full width), every mode's
    tokens equal to the oracle's (``decode {...}`` lines);
-7b. trains (phases "LM train ..."): llama3.2-3b at full width (28 layers,
+7b. serves the other families at full width (phases "LM serve (<arch>,
+   <family>, full width)"), each freed before the next: zamba2-2.7b (54
+   Mamba-2 layers, the shared attention block at 9 points, 2048-token
+   prompts), rwkv6-3b (32 layers, no attention), whisper-small (12 + 12
+   layers over 1500 stub frames, 224-token prompts, 32 tokens) and
+   phi-3-vision-4.2b (32 layers, 576 stub patches before 1472-token
+   prompts), each at B = 4 with an ``lm {...}`` line and its flash launches
+   counted by instance (9, 0, 36 a prefill + 12 a decode step, 32); layer 0
+   of each flash instance against the plain version and the flash prefill
+   and 4 teacher-forced decode steps against the reference attention
+   branch (``FAMILY_LOGIT_RTOL``); for zamba2 and rwkv6 prefill(S) against
+   prefill(S - 4) and 4 decode steps; the reduced float32 rwkv6 on the card
+   against the CPU; one prefill and one decode step of each profiled;
+7c. trains (phases "LM train ..."): llama3.2-3b at full width (28 layers,
    bf16, weights from seed 0 on the card, remat on, the reference attention
    branch: the flash kernel has no backward) for 4 ``api.train_step``s on
    ``SyntheticTokens`` batches of 4 x 2048, with a ``train {...}`` line (step
@@ -101,10 +113,11 @@ result, without them or outside a checkout of the repository. In order:
    main path's BFS, on the graph's (P, V_p, K) planes as ``bfs_cuda`` hands
    them over, with its occupancy at the main path's grain and the sums of
    the round times and bounds; flash attention on layer 0's q, k, v
-   captured from the prefill, on phi-3-vision-4.2b's layer 0 (head dim 96)
-   and moonshot-v1-16b-a3b's (head dim 128, 16 kv heads for 16 q heads)
-   likewise, at full layer shapes of head dims 80 (zamba2-2.7b) and 32
-   (bf16 and float32), each
+   captured from the prefill, on moonshot-v1-16b-a3b's (head dim 128, 16
+   kv heads for 16 q heads) and on each instance the families of 7b
+   captured (whisper's encoder, decoder and cross attention at prefill and
+   its cross attention at decode, zamba2's D 80, phi-3-vision's D 96)
+   likewise, at full layer shapes of head dim 32 (bf16 and float32), each
    at its kernel's k tile, and on small cases of every mask kind at head
    dims 20 to 128; topk_sim also at a 32x32 grid; and counts the
    tensor-core instructions (``cuobjdump -sass``) in the built flash_attn
@@ -161,11 +174,33 @@ SKEWED, SKEWED_GRAIN = dict(n=1 << 20, avg_deg=8.0, max_deg=512, seed=0), 256
 COARSE_BUCKET = 512
 # the reduced LM (head dim 32) served in both types: batch, prompt, tokens
 REDUCED_BATCH, REDUCED_PROMPT, REDUCED_GEN = 4, 256, 8
-# phi-3-vision-4.2b's text stack (phi3-mini: the dense decoder, without the
-# vision patch stub) at full width, head dim 96, cut to this depth, served
-# at the LM's batch and prompt: the path that runs flash_attn's tensor-core
-# instance for head dims below 128 (flash_tc_kernel<128, false>)
-WIDE_HEAD_ARCH, WIDE_HEAD_LAYERS, WIDE_HEAD_GEN = "phi-3-vision-4.2b", 2, 8
+# the families past dense and MoE, each served at full width through
+# lm_serve at the LM's batch (bf16, random weights from seed 0, flash
+# attention where the family has attention) after the MoE phases: (arch,
+# prompt tokens, greedy tokens). whisper-small's 224 + 32 positions stay
+# within its decoder's 448 over 1500 frames; phi-3-vision-4.2b's prompt
+# follows its 576 patches, 2048 positions in all. phi-3-vision-4.2b runs
+# flash_attn's tensor-core instance for head dims below 128 at D 96
+# (flash_tc_kernel<128, false>), zamba2-2.7b the same at D 80
+FAMILIES = (("zamba2-2.7b", 2048, 8), ("rwkv6-3b", 2048, 8), ("whisper-small", 224, 32),
+            ("phi-3-vision-4.2b", 2048 - 576, 8))
+# those families' flash prefill and teacher-forced decode against the
+# reference attention branch, and the recurrent families' prefill(S)
+# against prefill(S - STEPWISE_STEPS) and STEPWISE_STEPS decode steps (the
+# chunked scan against the one-token recurrence), at full depth in bf16:
+# relative to the reference's largest |logit|, as SHALLOW_LOGIT_RTOL. The
+# two sides round to bf16 at other places (p before PV in flash; GEMMs of
+# other heights; the scan's chunk outputs against one token's), 2**-8
+# relative each, carried through 32 to 54 layers; an error in either (a
+# mask, a position, a decay, a dropped state) moves logits by a share of
+# their size, as the 2-layer stacks' faults did (0.27 and 0.4 of it). On an
+# H100 the two sides differed by 0.013 (whisper-small) to 0.047
+# (phi-3-vision-4.2b) of it against the reference branch, and by 0.040
+# (zamba2-2.7b) and 0.056 (rwkv6-3b) prefill against stepwise decode
+FAMILY_LOGIT_RTOL, STEPWISE_STEPS = 2**-3, 4
+# the reduced float32 rwkv6 config served on the card and on the CPU:
+# cuBLAS sums in other orders than the CPU's BLAS (TF32 off)
+CARD_VS_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 # the serving phase: requests of the mixed stream (the six main-path
 # signatures in turn) and the executor-pool widths it is served at
 SERVE_REQUESTS, SERVE_WORKERS = 24, (1, 2, 4)
@@ -299,8 +334,6 @@ def main() -> int:
                     lm_vs_reference, smoke, lm)
     reduced = smoke.phase(f"LM serve (reduced {LM_ARCH}, head dim 32, flash) vs the reference "
                           "attention branch", reduced_lm_path, smoke, dev)
-    wide = smoke.phase(f"LM serve ({WIDE_HEAD_ARCH} text stack, head dim 96, flash) vs the "
-                       "reference attention branch", wide_head_lm_path, smoke, dev)
     smoke.phase("cuda vs local substrate on small inputs", small_agreement, smoke, dev)
     smoke.phase("device time per request (torch.profiler)", profile_requests, inputs, lm)
     if lm is not None:  # later phases read only llama's captured q, k, v and launches
@@ -312,7 +345,7 @@ def main() -> int:
         held = smoke.phase(f"LM ({MOE_ARCH}) flash prefill and decode vs the reference attention "
                            "branch, routing flips and drop share", moe_lm_vs_reference, smoke, moe)
         smoke.phase(f"device time of one {MOE_ARCH} prefill and decode step (torch.profiler)",
-                    profile_moe_lm, moe)
+                    profile_lm, moe)
         # one layer's experts stay for moe_dispatch; the rest of the stack goes
         blk = moe.pop("model").blocks[MOE_DISPATCH_LAYER].moe
         experts = tuple(w.detach() for w in (blk.w_gate, blk.w_up, blk.w_down))
@@ -324,6 +357,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     smoke.phase("DecodeServer through EngineService", decode_server_path, smoke, dev)
     torch.cuda.empty_cache()
+    families = family_phases(smoke, dev)
     smoke.phase(f"LM train ({LM_ARCH}, full width)", lm_train_path, smoke, dev)
     smoke.phase("LM train: remat and chunked loss vs the plain loss", remat_vs_plain, smoke, dev)
     smoke.phase(f"LM train (reduced {LM_ARCH}): card vs CPU, supervised recovery",
@@ -332,10 +366,43 @@ def main() -> int:
                 moe_train_path, smoke, dev)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
-    if lm is not None and wide is not None:
-        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced, wide,
-                    moe)
+    if lm is not None:
+        smoke.phase("flash_attn vs plain version, timed", flash_vs_plain, smoke, lm, reduced, moe,
+                    families)
     return finish(smoke)
+
+
+def family_phases(smoke: Smoke, dev) -> dict:
+    """The :data:`FAMILIES` at full width, one after another, each freed
+    before the next: the serve, its flash prefill and decode against the
+    reference attention branch (the families with attention), prefill(S)
+    against prefill(S - 4) and 4 decode steps (the recurrent families), the
+    reduced float32 rwkv6 on the card against the CPU, and the profiler rows
+    of a prefill and a decode step. Returns each served family's captures
+    and flash tallies (its weights dropped)."""
+    from repro_torch.configs import get_config
+
+    served = {}
+    for arch, prompt, gen in FAMILIES:
+        family = get_config(arch).family
+        fam = smoke.phase(f"LM serve ({arch}, {family}, full width)", lm_serve_path, smoke, dev,
+                          arch, gen, prompt)
+        if fam is None:
+            continue
+        if fam["captures"]:
+            smoke.phase(f"LM ({arch}) flash prefill and decode vs the reference attention branch",
+                        lm_vs_reference, smoke, fam, FAMILY_LOGIT_RTOL)
+        if family in ("ssm", "hybrid"):
+            smoke.phase(f"LM ({arch}) prefill(S) vs prefill(S - {STEPWISE_STEPS}) and "
+                        f"{STEPWISE_STEPS} decode steps", chunked_vs_stepwise, smoke, fam)
+        if family == "ssm":
+            smoke.phase(f"LM (reduced {arch}, float32): card vs CPU", reduced_card_vs_cpu, smoke, dev, arch)
+        smoke.phase(f"device time of one {arch} prefill and decode step (torch.profiler)",
+                    profile_lm, fam)
+        del fam["model"]
+        torch.cuda.empty_cache()
+        served[arch] = fam
+    return served
 
 
 def make_inputs(dev):
@@ -834,27 +901,39 @@ def grain_sweep(smoke: Smoke, inputs: dict, sub, grains) -> None:
               f"{len(rounds)} rounds (largest {max(rounds):.4f} ms)", flush=True)
 
 
-def warm_up_capturing(cfg, model, prompts, dev) -> tuple:
-    """A short warm-up serve (cuBLAS, the kernel's library) that captures
-    layer 0's attention inputs (B, H, S, D), as the model hands them to
-    flash attention at prefill."""
+def flash_calls_during(fn, keep: bool = False) -> tuple:
+    """Runs ``fn`` with the model's flash attention op wrapped: returns
+    (``fn``'s result, calls by instance, and with ``keep`` the first call's
+    (q, k, v) of each instance, (B, H, S, D) as the model hands them over).
+    An instance is (Sq, Skv, causal). The kernel's own launch count is
+    untouched."""
     import repro_torch.models.layers as layers
-    from repro_torch.launch.serve import lm_serve
 
-    captured = []
+    tally, captures = {}, {}
     flash_attention = layers.flash_attention
 
-    def capture(q, k, v, **kw):
-        if not captured:
-            captured.append((q, k, v))
+    def hook(q, k, v, **kw):
+        sig = (q.shape[2], k.shape[2], kw.get("causal", True))
+        tally[sig] = tally.get(sig, 0) + 1
+        if keep and sig not in captures:
+            captures[sig] = (q, k, v)
         return flash_attention(q, k, v, **kw)
 
-    layers.flash_attention = capture
+    layers.flash_attention = hook
     try:
-        lm_serve(cfg, model, prompts, 2, dev)
+        out = fn()
     finally:
         layers.flash_attention = flash_attention
-    return captured[0]
+    return out, tally, captures
+
+
+def warm_up_capturing(cfg, model, prompts, dev, batch: "dict | None" = None) -> dict:
+    """A short warm-up serve (cuBLAS, the kernel's library; a prefill and one
+    decode step) that captures layer 0's attention inputs of each flash
+    instance: {(Sq, Skv, causal): (q, k, v)}, in call order."""
+    from repro_torch.launch.serve import lm_serve
+
+    return flash_calls_during(lambda: lm_serve(cfg, model, prompts, 2, dev, batch), keep=True)[2]
 
 
 def fold_qkv(q, k, v) -> tuple:
@@ -862,7 +941,7 @@ def fold_qkv(q, k, v) -> tuple:
     return tuple(t.reshape(-1, t.shape[2], t.shape[3]) for t in (q, k, v))
 
 
-def flash_on_captured(qkv: tuple, what: str) -> float:
+def flash_on_captured(qkv: tuple, what: str, causal: bool = True) -> float:
     """flash_attn on captured layer-0 inputs held against its plain version
     at the kernel's k tile; returns the largest absolute difference."""
     from repro_torch.kernels.flash_attention.kernel import (
@@ -870,26 +949,45 @@ def flash_on_captured(qkv: tuple, what: str) -> float:
     )
 
     qf, kf, vf = fold_qkv(*qkv)
-    got = flash_attn(qf, kf, vf).float()
-    want = flash_attention_plain(qf, kf, vf, block_k=kernel_block_k(qf.dtype, qf.shape[2])).float()
+    got = flash_attn(qf, kf, vf, causal=causal).float()
+    want = flash_attention_plain(qf, kf, vf, causal=causal,
+                                 block_k=kernel_block_k(qf.dtype, qf.shape[2])).float()
     err = float((got - want).abs().max())
     torch.testing.assert_close(got, want,
                                **(FLASH_BF16_TOL if qf.dtype == torch.bfloat16 else FLASH_F32_TOL),
                                msg=lambda m: f"{what}: flash_attn vs its plain version: {m}")
-    print(f"  {what}: layer 0 q {tuple(qf.shape)} k/v {tuple(kf.shape)} {qf.dtype}: flash_attn "
-          f"within {err} of its plain version")
+    print(f"  {what}: layer 0 q {tuple(qf.shape)} k/v {tuple(kf.shape)} {qf.dtype}"
+          f"{'' if causal else ' non-causal'}: flash_attn within {err} of its plain version")
     return err
 
 
-def lm_serve_path(smoke: Smoke, dev, arch: str = LM_ARCH, gen: int = LM_GEN) -> dict:
+def flash_per_serve(cfg, gen: int) -> int:
+    """Flash launches a serve of ``gen`` tokens makes: one a self-attention
+    layer at prefill (a shared block's application point in a hybrid), and
+    for an encoder-decoder the encoder's layers and one cross-attention a
+    decoder layer at prefill and again at every decode step (over the
+    cached frames, with no valid length); none in an SSM."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // (cfg.shared_attn_period or cfg.num_layers)
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers + (gen - 1) * cfg.num_layers
+    return cfg.num_layers
+
+
+def lm_serve_path(smoke: Smoke, dev, arch: str = LM_ARCH, gen: int = LM_GEN,
+                  prompt: int = LM_PROMPT) -> dict:
     """The LM's main path: ``lm_serve`` at the full width of the arch, flash
-    attention at prefill, after a warm-up serve that captures layer 0's
-    attention inputs for the kernel check."""
+    attention where the family has it, with the stub frontend's frames or
+    patches, after a warm-up serve that captures layer 0's attention inputs
+    of each flash instance for the kernel check. The flash launches are
+    counted by the kernel's wrapper and tallied by instance."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attn
-    from repro_torch.launch.serve import lm_serve
+    from repro_torch.launch.serve import lm_serve, stub_inputs
     from repro_torch.models import api
 
     cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
@@ -898,71 +996,142 @@ def lm_serve_path(smoke: Smoke, dev, arch: str = LM_ARCH, gen: int = LM_GEN) -> 
     torch.cuda.synchronize()
     print(f"  {cfg.name}: {sum(p.numel() for p in model.parameters())} weights in {cfg.dtype}, "
           f"drawn on the card in {time.perf_counter() - t0:.1f} s")
-    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
-    qkv = warm_up_capturing(cfg, model, prompts, dev)
+    prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (LM_BATCH, prompt))
+    batch = stub_inputs(cfg, LM_BATCH, 2)
+    captures = warm_up_capturing(cfg, model, prompts, dev, batch)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    res, launches = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, gen, dev))
+    (res, tally, _), launches = counted(
+        flash_attn, lambda: flash_calls_during(lambda: lm_serve(cfg, model, prompts, gen, dev, batch)))
     toks = res.tokens
     smoke.check(tuple(toks.shape) == (LM_BATCH, gen), f"lm_serve: token shape {tuple(toks.shape)}")
     smoke.check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "lm_serve: token ids out of range")
     steps = gen - 1
     stats = {
-        "arch": cfg.name, "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": gen,
+        "arch": cfg.name, "family": cfg.family, "batch": LM_BATCH, "prompt": prompt, "gen": gen,
+        **{f"{k}_per_row": v.shape[1] for k, v in batch.items()},
         "prefill_ms": res.prefill_seconds * 1e3,
-        "prefill_tok_s": LM_BATCH * LM_PROMPT / res.prefill_seconds,
+        "prefill_tok_s": LM_BATCH * prompt / res.prefill_seconds,
         "decode_ms_per_step": res.decode_seconds * 1e3 / steps,
         "decode_tok_s": LM_BATCH * steps / res.decode_seconds,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "flash_attn_launches": launches,
+        "flash_by_instance": {f"Sq {sq} Skv {skv}{'' if c else ' non-causal'}": n
+                              for (sq, skv, c), n in tally.items()},
     }
     print("  lm " + json.dumps(stats), flush=True)
     print(f"  sample token ids: {toks[0, :16].tolist()}")
-    smoke.check(launches == cfg.num_layers,
-                f"flash_attn launched {launches} times in one prefill, want {cfg.num_layers}")
-    return {"cfg": cfg, "model": model, "prompts": prompts, "launches": launches, "qkv": qkv}
+    want = flash_per_serve(cfg, gen)
+    smoke.check(launches == want == sum(tally.values()),
+                f"flash_attn launched {launches} times in the serve ({sum(tally.values())} calls), "
+                f"want {want}")
+    first = next(iter(captures.values()), None)
+    return {"cfg": cfg, "model": model, "prompts": prompts, "batch": batch, "gen": gen,
+            "launches": launches, "tally": tally, "captures": captures, "qkv": first}
+
+
+def logits_close(smoke: Smoke, what: str, got, want, rtol: "float | None" = None) -> None:
+    """``got`` within :data:`LM_LOGIT_ATOL` of ``want``, or with ``rtol``,
+    within ``rtol`` times ``want``'s largest |logit|; both finite."""
+    a, b = got.float(), want.float()
+    smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{what}: non-finite logits")
+    err, top = float((a - b).abs().max()), float(b.abs().max())
+    limit = LM_LOGIT_ATOL if rtol is None else rtol * top
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    print(f"  {what}: max abs diff {err}, limit {limit} (largest |logit| {top}; "
+          f"argmax agrees on {agree:.2f} of rows)")
+    smoke.check(err <= limit, f"{what}: logits differ by {err} > {limit}")
 
 
 def lm_vs_reference(smoke: Smoke, lm: dict, rtol: "float | None" = None) -> None:
-    """The flash prefill against the reference attention branch (q-chunked
-    plain PyTorch) on the same weights, then teacher-forced decode steps:
-    the same tokens into both caches. Free-running greedy tokens are not
-    compared: random weights give near-tied logits. The logits agree within
-    :data:`LM_LOGIT_ATOL`, or with ``rtol``, within ``rtol`` times the
-    reference's largest |logit|."""
+    """Layer 0's captured q, k, v of each flash instance other than the
+    llama and moonshot serves' (checked in their own phases) against the
+    plain version; then the flash prefill against the reference attention
+    branch (q-chunked plain PyTorch) on the same weights, and teacher-forced
+    decode steps: the same tokens into both states. Free-running greedy
+    tokens are not compared: random weights give near-tied logits. The
+    logits agree within :data:`LM_LOGIT_ATOL`, or with ``rtol``, within
+    ``rtol`` times the reference's largest |logit|."""
     import dataclasses
 
     from repro_torch.models import Ctx, api
 
     cfg, model = lm["cfg"], lm["model"]
+    if cfg.name not in (LM_ARCH, MOE_ARCH):
+        for (sq, skv, causal), qkv in lm.get("captures", {}).items():
+            flash_on_captured(qkv, f"{cfg.name} Sq {sq} Skv {skv}", causal)
     dev = model.embed.device
     tokens = torch.as_tensor(lm["prompts"], device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in lm.get("batch", {}).items()}
     ctx_f, ctx_r = Ctx(cfg), Ctx(dataclasses.replace(cfg, attn_impl="reference"))
-    max_len = tokens.shape[1] + LM_TEACHER_STEPS
-    lf, cf = api.prefill(ctx_f, model, tokens, max_len)
+    max_len = tokens.shape[1] + LM_TEACHER_STEPS + (cfg.num_patches or 0)
+    lf, cf = api.prefill(ctx_f, model, tokens, max_len, batch)
     t0 = time.perf_counter()
-    lr, cr = api.prefill(ctx_r, model, tokens, max_len)
+    lr, cr = api.prefill(ctx_r, model, tokens, max_len, batch)
     torch.cuda.synchronize()
     print(f"  reference-branch prefill: {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    print(f"  KV caches after prefill, max abs diff: k {float((cf.k - cr.k).abs().max())}, "
-          f"v {float((cf.v - cr.v).abs().max())}")
-
-    def compare(what, a, b):
-        a, b = a.float(), b.float()
-        smoke.check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()), f"{what}: non-finite logits")
-        err, top = float((a - b).abs().max()), float(b.abs().max())
-        limit = LM_LOGIT_ATOL if rtol is None else rtol * top
-        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        print(f"  {what}: max abs diff {err}, limit {limit} (largest |logit| {top}; "
-              f"argmax agrees on {agree:.2f} of rows)")
-        smoke.check(err <= limit, f"{what}: flash and reference logits differ by {err} > {limit}")
-
-    compare("prefill last-token logits", lf, lr)
+    print("  decode state after prefill, max abs diff: " + ", ".join(
+        f"{f} {float((getattr(cf, f).float() - getattr(cr, f).float()).abs().max())}"
+        for f in cf._fields if f != "length"))
+    logits_close(smoke, "prefill last-token logits", lf, lr, rtol)
     for i, tok in enumerate(np.random.default_rng(2).integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, tokens.shape[0], 1))):
         t = torch.as_tensor(tok, device=dev)
         lf, cf = api.decode_step(ctx_f, model, t, cf)
         lr, cr = api.decode_step(ctx_r, model, t, cr)
-        compare(f"teacher-forced decode step {i}", lf, lr)
+        logits_close(smoke, f"teacher-forced decode step {i}", lf, lr, rtol)
+
+
+def chunked_vs_stepwise(smoke: Smoke, lm: dict) -> None:
+    """The served model's prefill over the whole prompt against a prefill
+    over all but its last :data:`STEPWISE_STEPS` tokens and decode steps fed
+    those tokens: the chunked scan (and the flash prefill) against the
+    one-token recurrence (and the dense attention over the cache), on the
+    last token's logits, within :data:`FAMILY_LOGIT_RTOL`."""
+    from repro_torch.models import Ctx, api
+
+    cfg, model = lm["cfg"], lm["model"]
+    ctx = Ctx(cfg)
+    tokens = torch.as_tensor(lm["prompts"], device=model.embed.device)
+    s = tokens.shape[1]
+    want, _ = api.prefill(ctx, model, tokens, s)
+    got, state = api.prefill(ctx, model, tokens[:, :s - STEPWISE_STEPS], s)
+    for i in range(s - STEPWISE_STEPS, s):
+        got, state = api.decode_step(ctx, model, tokens[:, i:i + 1], state)
+    logits_close(smoke, f"prefill({s}) vs prefill({s - STEPWISE_STEPS}) + {STEPWISE_STEPS} decode steps",
+                 got, want, FAMILY_LOGIT_RTOL)
+
+
+def reduced_card_vs_cpu(smoke: Smoke, dev, arch: str) -> None:
+    """The reduced float32 config of ``arch``, the same weights on the card
+    and on the CPU: a prefill of :data:`REDUCED_BATCH` x :data:`REDUCED_PROMPT`
+    tokens and :data:`LM_TEACHER_STEPS` teacher-forced decode steps, logits
+    within :data:`CARD_VS_CPU_TOL`."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import Ctx, api
+
+    cfg = reduced_config(arch)
+    ctx = Ctx(cfg)
+    rng = np.random.default_rng(5)
+    prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, (REDUCED_BATCH, REDUCED_PROMPT)))
+    steps = torch.as_tensor(rng.integers(1, cfg.vocab_size, (LM_TEACHER_STEPS, REDUCED_BATCH, 1)))
+    cpu_model = api.init_params(cfg, seed=0, device="cpu")
+    card_model = api.init_params(cfg, seed=1, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    outs = {}
+    for where, model in (("cpu", cpu_model), ("card", card_model)):
+        d = model.embed.device
+        logits, state = api.prefill(ctx, model, prompts.to(d), REDUCED_PROMPT + LM_TEACHER_STEPS)
+        seq = [logits]
+        for t in steps:
+            logits, state = api.decode_step(ctx, model, t.to(d), state)
+            seq.append(logits)
+        outs[where] = [x.float().cpu() for x in seq]
+    for i, (g, w) in enumerate(zip(outs["card"], outs["cpu"])):
+        err = float((g - w).abs().max())
+        what = "prefill" if i == 0 else f"decode step {i - 1}"
+        print(f"  reduced {cfg.name} float32, {what}: card vs CPU max abs diff {err} "
+              f"(largest |logit| {float(w.abs().max())})")
+        torch.testing.assert_close(g, w, **CARD_VS_CPU_TOL, msg=lambda m: f"{what}: {m}")
 
 
 def csr_mv_ms(csr, x) -> "float | None":
@@ -1136,7 +1305,7 @@ def reduced_lm_path(smoke: Smoke, dev) -> dict:
         cfg = dataclasses.replace(reduced_config(LM_ARCH, dtype), attn_impl="flash")
         model = api.init_params(cfg, seed=0, device=dev)
         prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, (REDUCED_BATCH, REDUCED_PROMPT))
-        qkv = warm_up_capturing(cfg, model, prompts, dev)
+        qkv = next(iter(warm_up_capturing(cfg, model, prompts, dev).values()))
         res, n_launch = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, REDUCED_GEN, dev))
         toks = res.tokens
         smoke.check(tuple(toks.shape) == (REDUCED_BATCH, REDUCED_GEN)
@@ -1154,42 +1323,6 @@ def reduced_lm_path(smoke: Smoke, dev) -> dict:
                         rtol=SHALLOW_LOGIT_RTOL[dtype])
         launches[dtype] = n_launch
     return launches
-
-
-def wide_head_lm_path(smoke: Smoke, dev) -> dict:
-    """phi-3-vision-4.2b's text stack (:data:`WIDE_HEAD_ARCH`, head dim 96)
-    served through ``lm_serve`` with flash attention, the flash launch count
-    set to 0 just before and read just after; layer 0's q, k, v from a
-    warm-up serve held against the kernel's plain version, then the logits
-    against the reference attention branch (:data:`SHALLOW_LOGIT_RTOL`)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attn
-    from repro_torch.launch.serve import lm_serve
-    from repro_torch.models import api
-
-    cfg = dataclasses.replace(get_config(WIDE_HEAD_ARCH), family="dense",
-                              num_layers=WIDE_HEAD_LAYERS, attn_impl="flash")
-    model = api.init_params(cfg, seed=0, device=dev)
-    prompts = np.random.default_rng(4).integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
-    qkv = warm_up_capturing(cfg, model, prompts, dev)
-    res, n_launch = counted(flash_attn, lambda: lm_serve(cfg, model, prompts, WIDE_HEAD_GEN, dev))
-    toks = res.tokens
-    smoke.check(tuple(toks.shape) == (LM_BATCH, WIDE_HEAD_GEN)
-                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
-                f"{cfg.name} text stack: tokens {tuple(toks.shape)} out of shape or range")
-    print(f"  {cfg.name} text stack {cfg.dtype}: head dim {cfg.head_dim}, {cfg.num_layers} layers of "
-          f"width {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, prompts "
-          f"{LM_BATCH}x{LM_PROMPT}: prefill {res.prefill_seconds * 1e3:.3f} ms, decode "
-          f"{res.decode_seconds * 1e3 / (WIDE_HEAD_GEN - 1):.3f} ms a step, flash launches {n_launch}",
-          flush=True)
-    smoke.check(n_launch == cfg.num_layers,
-                f"{cfg.name} text stack: flash_attn launched {n_launch} times, want {cfg.num_layers}")
-    flash_on_captured(qkv, f"{cfg.name} text stack")
-    lm_vs_reference(smoke, {"cfg": cfg, "model": model, "prompts": prompts},
-                    rtol=SHALLOW_LOGIT_RTOL[cfg.dtype])
-    return {"launches": n_launch, "qkv": qkv}
 
 
 def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
@@ -1314,19 +1447,22 @@ def moe_lm_vs_reference(smoke: Smoke, lm: dict) -> dict:
     return out
 
 
-def profile_moe_lm(lm: dict) -> None:
-    """One prefill and one decode step of the MoE LM under torch.profiler."""
+def profile_lm(lm: dict) -> None:
+    """One prefill and one decode step of a served LM under torch.profiler."""
     from repro_torch.models import Ctx, api
 
-    ctx, model = Ctx(lm["cfg"]), lm["model"]
-    tokens = torch.as_tensor(lm["prompts"], device=model.embed.device)
-    _, caches = api.prefill(ctx, model, tokens, LM_PROMPT + MOE_GEN)
-    name = lm["cfg"].name
+    cfg, model = lm["cfg"], lm["model"]
+    ctx, dev = Ctx(cfg), model.embed.device
+    tokens = torch.as_tensor(lm["prompts"], device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in lm["batch"].items()}
+    max_len = tokens.shape[1] + lm["gen"] + (cfg.num_patches or 0)
+    _, state = api.prefill(ctx, model, tokens, max_len, batch)
+    b, s = tokens.shape
+    # each decode call writes the same cache entry (the state passed in stays)
     profile_calls({
-        f"{name} prefill ({LM_BATCH}x{LM_PROMPT}, flash)":
-            lambda: api.prefill(ctx, model, tokens, LM_PROMPT + MOE_GEN),
-        f"{name} decode step ({LM_BATCH} rows, {LM_PROMPT} cached)":
-            lambda: api.decode_step(ctx, model, tokens[:, -1:], caches),
+        f"{cfg.name} prefill ({b}x{s}, flash)": lambda: api.prefill(ctx, model, tokens, max_len, batch),
+        f"{cfg.name} decode step ({b} rows, {s} in the prompt)":
+            lambda: api.decode_step(ctx, model, tokens[:, -1:], state),
     })
 
 
@@ -1883,26 +2019,26 @@ def tensor_core_instructions(lib: Path, nvcc: str) -> "dict[str, int] | None":
     return {op: sum(f" {op}." in line or f" {op} " in line for line in sass) for op in ("HGMMA", "HMMA")}
 
 
-# full attention layers of the repo's configs at the LM cell's batch and
-# prompt (B = 4, S = 2048, causal) on random inputs: (case, Hq, Hkv, D,
-# dtype, the serve whose launches of the same kernel instance the row
-# reports). D = 80 runs flash_tc_kernel<128, false>, as the phi-3 text
-# stack's D = 96 does; D = 32 runs the reduced configs' instances
-# (flash_tc_kernel<64, false> in bf16, the CUDA-core kernel at width 32 in
-# float32)
+# full attention layers at the LM cell's batch and prompt (B = 4, S = 2048,
+# causal) on random inputs: (case, Hq, Hkv, D, dtype, the reduced serve
+# whose launches of the same kernel instance the row reports): D 32 runs
+# the reduced configs' instances (flash_tc_kernel<64, false> in bf16, the
+# CUDA-core kernel at width 32 in float32)
 FLASH_LAYERS = [
-    ("zamba2-2.7b shared attention layer", 32, 32, 80, torch.bfloat16, "wide"),
     ("head dim 32 (reduced configs), bf16", 32, 32, 32, torch.bfloat16, "bfloat16"),
     ("head dim 32 (reduced configs), float32", 32, 32, 32, torch.float32, "float32"),
 ]
 
 
-def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict,
-                   moe: "dict | None" = None) -> None:
+def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", moe: "dict | None" = None,
+                   families: "dict | None" = None) -> None:
     """flash_attn against its plain version (at the kernel's k tile) on
-    layer 0's q, k, v from the llama, phi-3 and moonshot prefills, on small cases of
-    every mask kind at the configs' head dims, and at the full layer shapes
-    of :data:`FLASH_LAYERS`; times kernel, plain version and
+    layer 0's q, k, v from the llama and moonshot prefills and on each flash
+    instance the served families captured (whisper-small's encoder, decoder
+    self and cross attention at prefill, cross attention at decode;
+    zamba2-2.7b's shared block; phi-3-vision-4.2b), on small cases of every
+    mask kind at the configs' head dims, and at the full layer shapes of
+    :data:`FLASH_LAYERS`; times kernel, plain version and
     scaled_dot_product_attention (a yardstick, never called by the port)."""
     import torch.nn.functional as F
 
@@ -1934,19 +2070,20 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict,
     print(f"  {sum(map(len, dims.values())) * len(FLASH_SMALL_CASES)} small cases agree "
           f"(head dims: float32 {dims[torch.float32]}, bf16 {dims[torch.bfloat16]})")
 
-    def flash_row(case, qf, kf, vf, q4, k4, v4, launches, **extra):
-        """One flash_attn row on folded (qf, kf, vf), with SDPA on the
-        (B, H, S, D) views (q4, k4, v4)."""
+    def flash_row(case, q4, k4, v4, launches, causal=True, **extra):
+        """One flash_attn row on (B, H, S, D) inputs (q4, k4, v4), folded to
+        the kernel's (B·H, S, D), with SDPA on the unfolded views."""
+        qf, kf, vf = fold_qkv(q4, k4, v4)
         dtype, dd = qf.dtype, qf.shape[2]
         block_k = kernel_block_k(dtype, dd)
-        got = flash_attn(qf, kf, vf)
-        want = flash_attention_plain(qf, kf, vf, block_k=block_k)
+        got = flash_attn(qf, kf, vf, causal=causal)
+        want = flash_attention_plain(qf, kf, vf, causal=causal, block_k=block_k)
         err = float((got.float() - want.float()).abs().max())
         torch.testing.assert_close(got.float(), want.float(),
                                    **(FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL))
 
-        def library():
-            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True, enable_gqa=True)
+        def library():  # is_causal aligns to the top left: every causal row here has Sq = Skv
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal, enable_gqa=True)
 
         try:
             lib_err = float((library().reshape(got.shape).float() - got.float()).abs().max())
@@ -1957,35 +2094,37 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", wide: dict,
         print(f"  {case}: q {tuple(qf.shape)} k/v {tuple(kf.shape)} {dtype}: max abs err {err} vs "
               f"the plain version, {lib_err} vs scaled_dot_product_attention")
         b_, hq_, sq_, _ = q4.shape
+        skv_ = kf.shape[1]
         n_bytes = (2 * qf.numel() + kf.numel() + vf.numel()) * qf.element_size()  # q, k, v in; o out
-        n_ops = 4 * dd * b_ * hq_ * causal_pairs(sq_, kf.shape[1])  # QK^T and PV, 2 flops a MAC
+        pairs = causal_pairs(sq_, skv_) if causal else sq_ * skv_
+        n_ops = 4 * dd * b_ * hq_ * pairs  # QK^T and PV, 2 flops a MAC
         kernel_row(smoke, {"flash_attn": launches}, "flash_attn", "src/repro_torch/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attention/kernel.py:25", err,
-                   time_ms(lambda: flash_attn(qf, kf, vf), 20),
-                   time_ms(lambda: flash_attention_plain(qf, kf, vf, block_k=block_k), 3, warmup=1),
+                   time_ms(lambda: flash_attn(qf, kf, vf, causal=causal), 20),
+                   time_ms(lambda: flash_attention_plain(qf, kf, vf, causal=causal, block_k=block_k), 3,
+                           warmup=1),
                    n_bytes, n_ops, library_ms,
                    PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S,
-                   case=case, head_dim=dd, dtype=str(dtype).replace("torch.", ""), **extra)
+                   case=case, head_dim=dd, dtype=str(dtype).replace("torch.", ""), causal=causal,
+                   **extra)
 
     # (B, Hq, S, D), (B, Hkv, S, D), as the model hands them over
-    flash_row(f"{LM_ARCH} layer 0 of the prefill", *fold_qkv(*lm["qkv"]), *lm["qkv"],
-              lm["launches"])
-    wide_serve = f"LM serve {WIDE_HEAD_ARCH} text stack, {WIDE_HEAD_LAYERS} layers"
-    flash_row(f"{WIDE_HEAD_ARCH} text stack, layer 0 of the prefill", *fold_qkv(*wide["qkv"]),
-              *wide["qkv"], wide["launches"], launches_counted_in=wide_serve)
+    flash_row(f"{LM_ARCH} layer 0 of the prefill", *lm["qkv"], lm["launches"])
+    for arch, fam in (families or {}).items():
+        for (sq, skv, causal), qkv in fam["captures"].items():
+            where = "decode step" if sq == 1 and fam["cfg"].family == "encdec" else "prefill"
+            flash_row(f"{arch} layer 0, {where}, Sq {sq} Skv {skv}{'' if causal else ' non-causal'}",
+                      *qkv, fam["tally"][(sq, skv, causal)], causal=causal,
+                      launches_counted_in=f"LM serve {arch}: this instance's launches")
     for case, hq_, hkv_, dd, dtype, counted_in in FLASH_LAYERS:
         q4 = torch.randn((LM_BATCH, hq_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
         k4, v4 = (torch.randn((LM_BATCH, hkv_, LM_PROMPT, dd), generator=gen).to(q.device, dtype)
                   for _ in "kv")
-        if counted_in == "wide":
-            launches, where = wide["launches"], f"{wide_serve} (head dim 96, the same instance)"
-        else:
-            launches = (reduced or {}).get(counted_in, 0)
-            where = f"LM serve reduced {LM_ARCH}, {counted_in}"
-        flash_row(case, *fold_qkv(q4, k4, v4), q4, k4, v4, launches, launches_counted_in=where)
+        flash_row(case, q4, k4, v4, (reduced or {}).get(counted_in, 0),
+                  launches_counted_in=f"LM serve reduced {LM_ARCH}, {counted_in}")
     if moe is not None:  # MHA: 16 kv heads for 16 q heads, 64 (B x H) planes
-        flash_row(f"{MOE_ARCH} layer 0 of the prefill", *fold_qkv(*moe["qkv"]), *moe["qkv"],
-                  moe["launches"], launches_counted_in=f"LM serve {MOE_ARCH}, one prefill")
+        flash_row(f"{MOE_ARCH} layer 0 of the prefill", *moe["qkv"], moe["launches"],
+                  launches_counted_in=f"LM serve {MOE_ARCH}, one prefill")
 
 
 # -- training ------------------------------------------------------------------

@@ -10,8 +10,10 @@ port's object holding the same arrays:
     fields = {f: np.asarray(getattr(ref_csr, f)) for f in ("indptr", "indices", "data")}
     csr = from_numpy(CSR, {**fields, "shape": ref_csr.shape}, device="cpu")
 
-The LM's weights and KV caches come across with :func:`lm_params_from_numpy`
-and :func:`kv_caches_from_numpy`, the optimizer's state with
+The LM's weights (every family's tree) come across with
+:func:`lm_params_from_numpy`, any family's decode state (KV caches, RWKV-6
+state, Zamba2 or Whisper caches) with :func:`decode_state_from_numpy`, the
+optimizer's state with
 :func:`opt_state_from_numpy`, the ``moe_decode`` op's flat parameters with
 :func:`moe_decode_params_from_numpy`; :func:`lm_params_to_numpy` and
 :func:`opt_state_to_numpy` go back to the JAX package's tree layout.
@@ -27,14 +29,16 @@ import torch
 from .core.gsana_data import Buckets, VertexSet
 from .core.spmv import PartitionedELL
 from .device import resolve_device
+from .models import api
 from .models.config import ModelConfig
-from .models.layers import dtype_of
-from .models.transformer import MOE_DECODE_PARAM_KEYS, KVCaches
+from .models.transformer import MOE_DECODE_PARAM_KEYS, moe_decode_params
 from .optim import AdamWState
 from .sparse.csr import CSR
 from .sparse.graph import PartitionedGraph
 
 CONTAINERS = (CSR, PartitionedELL, PartitionedGraph, VertexSet, Buckets)
+# the LM trees' subtrees stacked (L, ...) a layer: decoder or encoder-decoder
+_STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def numpy_fields(obj) -> dict[str, Any]:
@@ -65,54 +69,79 @@ def from_numpy(cls: type, fields: dict[str, Any], device="cuda"):
 
 
 def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict[str, torch.Tensor]:
-    """The port's ``Transformer`` state_dict from the JAX package's
-    ``init_params`` tree as numpy arrays: each stacked ``(L, ...)`` block
-    array (``attn``, ``mlp`` or ``moe``, the norms) is split into per-layer
-    ``blocks.<i>.<sub>.<name>`` entries, and every array is cast to
-    ``cfg.dtype`` on ``device``, but an MoE ``router``, which stays float32
-    as in both packages. numpy has no bfloat16, so hand bf16 arrays over as
-    float32: the round trip is lossless."""
-    tensor = _caster(cfg, device)
-    return {name: tensor(a, name.rsplit(".", 1)[-1]) for name, a in _by_name(cfg, tree).items()}
+    """The port's model state_dict (any family) from the JAX package's
+    ``init_params`` tree as numpy arrays: each stacked ``(L, ...)`` array of
+    ``blocks``, ``enc_blocks`` or ``dec_blocks`` is split into per-layer
+    ``<stack>.<i>.<path>`` entries, the unstacked subtrees (``final_norm``,
+    ``enc_norm``, ``shared_attn``) keep their paths, and every array takes
+    the type of its leaf in the tree: ``cfg.dtype``, or float32 for the
+    leaves that are float32 whatever the config (an MoE ``router``, rwkv6's
+    decay and bonus, Mamba-2's ``a_log``, ``d_skip``, ``dt_bias``). numpy has
+    no bfloat16, so hand bf16 arrays over as float32: the round trip is
+    lossless."""
+    dtypes = _param_dtypes(cfg)
+    dev = resolve_device(device)
+    return {name: torch.as_tensor(np.array(a), device=dev).to(dtypes[name])
+            for name, a in _by_name(cfg, tree).items()}
+
+
+def _param_dtypes(cfg: ModelConfig) -> dict[str, torch.dtype]:
+    """Each parameter's type in the model of ``cfg``, read from one built on
+    the meta device (no memory): the port's tree holds the JAX package's
+    leaf types (``tests/test_torch_lm_*.py`` pin them)."""
+    return {name: t.dtype for name, t in api.init_params(cfg, device="meta").state_dict().items()}
+
+
+def _flat(tree: dict, prefix: str = ""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", v
 
 
 def _by_name(cfg: ModelConfig, tree: dict) -> dict:
     """The JAX package's parameter tree (or a tree of the same layout, such
     as an optimizer moment) keyed by the port's parameter names."""
-    out = {"embed": tree["embed"], "lm_head": tree["lm_head"]}
-    out.update({f"final_norm.{name}": a for name, a in tree["final_norm"].items()})
-    for sub, leaves in tree["blocks"].items():
-        for name, a in leaves.items():
-            if len(a) != cfg.num_layers:
-                raise ValueError(f"blocks.{sub}.{name} stacks {len(a)} layers, config has {cfg.num_layers}")
-            out.update({f"blocks.{i}.{sub}.{name}": a[i] for i in range(cfg.num_layers)})
+    stacks = dict(zip(_STACKS, (cfg.num_layers, cfg.encoder_layers, cfg.num_layers)))
+    out = {}
+    for path, a in _flat(tree):
+        top, _, rest = path.partition(".")
+        if top not in stacks:
+            out[path] = a
+            continue
+        if len(a) != stacks[top]:
+            raise ValueError(f"{path} stacks {len(a)} layers, config has {stacks[top]}")
+        out.update({f"{top}.{i}.{rest}": a[i] for i in range(stacks[top])})
     return out
 
 
 def lm_params_to_numpy(params) -> dict:
     """The JAX package's ``init_params`` tree (numpy, floating tensors as
-    float32) from the port's ``Transformer``, or from a dict keyed by its
-    parameter names (grads, moments): the inverse of :func:`_by_name`, each
-    layer's ``blocks.<i>.<sub>.<name>`` stacked to ``(L, ...)``."""
+    float32) from the port's model (any family), or from a dict keyed by
+    its parameter names (grads, moments): the inverse of :func:`_by_name`,
+    each layer's ``<stack>.<i>.<path>`` stacked to ``(L, ...)``."""
     named = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
 
     def host(t):
         t = t.detach()
         return (t.float() if t.is_floating_point() else t).cpu().numpy()
 
-    tree: dict = {"blocks": {}, "final_norm": {}}
-    layers: dict = {}
+    def put(tree: dict, parts: list, value) -> None:
+        for key in parts[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[parts[-1]] = value
+
+    tree: dict = {}
+    layers: dict = {}  # (stack, path) -> {layer: array}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(parts[2], {}).setdefault(parts[3], {})[int(parts[1])] = host(t)
-        elif parts[0] == "final_norm":
-            tree["final_norm"][parts[1]] = host(t)
+        if parts[0] in _STACKS:
+            layers.setdefault((parts[0], tuple(parts[2:])), {})[int(parts[1])] = host(t)
         else:
-            tree[name] = host(t)
-    for sub, leaves in layers.items():
-        tree["blocks"][sub] = {n: np.stack([by_layer[i] for i in sorted(by_layer)])
-                               for n, by_layer in leaves.items()}
+            put(tree, parts, host(t))
+    for (stack, path), by_layer in layers.items():
+        put(tree, [stack, *path], np.stack([by_layer[i] for i in sorted(by_layer)]))
     return tree
 
 
@@ -142,36 +171,34 @@ def opt_state_to_numpy(state: AdamWState) -> dict:
             "ef_residual": None if state.ef_residual is None else lm_params_to_numpy(state.ef_residual)}
 
 
-def _caster(cfg: ModelConfig, device):
-    """numpy array (and its parameter name) -> tensor on ``device`` in
-    ``cfg.dtype``, float32 for a ``router``."""
-    dev = resolve_device(device)
-
-    def tensor(a, name: str = "") -> torch.Tensor:
-        dt = torch.float32 if name == "router" else dtype_of(cfg)
-        return torch.as_tensor(np.array(a), device=dev).to(dt)
-
-    return tensor
-
-
 def moe_decode_params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict[str, torch.Tensor]:
     """The ``moe_decode`` op's flat parameter dict (the port's
     ``moe_decode_params`` layout) from the JAX package's
     ``moe_decode_params`` dict as numpy arrays, cast as
-    :func:`lm_params_from_numpy` casts."""
+    :func:`lm_params_from_numpy` casts (``router`` float32)."""
     missing = sorted(set(MOE_DECODE_PARAM_KEYS) - set(tree))
     if missing:
         raise ValueError(f"moe_decode params missing {missing}")
-    tensor = _caster(cfg, device)
-    return {name: tensor(tree[name], name) for name in MOE_DECODE_PARAM_KEYS}
-
-
-def kv_caches_from_numpy(cfg: ModelConfig, k, v, length, device="cuda") -> KVCaches:
-    """``KVCaches`` from the JAX package's ``(L, B, Smax, Hkv, Dh)`` cache
-    arrays (as numpy, bf16 upcast to float32) and valid length."""
     dev = resolve_device(device)
-    return KVCaches(
-        k=torch.as_tensor(np.array(k), device=dev).to(dtype_of(cfg)),
-        v=torch.as_tensor(np.array(v), device=dev).to(dtype_of(cfg)),
-        length=int(length),
-    )
+    dtypes = {name: t.dtype for name, t in moe_decode_params(cfg, device="meta").items()}
+    return {name: torch.as_tensor(np.array(tree[name]), device=dev).to(dtypes[name])
+            for name in MOE_DECODE_PARAM_KEYS}
+
+
+def decode_state_from_numpy(cfg: ModelConfig, state, device="cuda"):
+    """The family's decode state (``KVCaches``, ``RWKVState``,
+    ``ZambaCaches`` or ``WhisperCaches``) from the JAX package's (a named
+    tuple of the same field names, or a dict, arrays as numpy with bf16
+    upcast to float32): each array takes the type of its field in the
+    port's empty state (``api.init_decode_state``), ``length`` an int."""
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    empty = api.init_decode_state(cfg, 1, 1, device="meta")
+    if set(fields) != set(empty._fields):
+        raise ValueError(f"{cfg.family} decode state needs fields {sorted(empty._fields)}, "
+                         f"got {sorted(fields)}")
+    dev = resolve_device(device)
+    return type(empty)(**{
+        name: int(fields[name]) if name == "length"
+        else torch.as_tensor(np.array(fields[name]), device=dev).to(getattr(empty, name).dtype)
+        for name in empty._fields
+    })

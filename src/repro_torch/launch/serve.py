@@ -1,12 +1,14 @@
 """Serving entry points.
 
-LM path: prefill a batch of prompts, then greedy-decode.
+LM path: prefill a batch of prompts, then greedy-decode, for any of the
+configs' families (dense, MoE, VLM, SSM, hybrid, encoder-decoder).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
         --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 Weights are random, drawn from seed 0 on the device; prompts are numpy
-integers from seed 1.
+integers from seed 1, and the stub frontends' frames (whisper) or patches
+(phi-3-vision) numpy N(0, 1) from seed 2.
 
 Irregular-op path: drive an ``EngineService`` on the ``cuda`` substrate with a
 mixed SpMV/BFS request stream (autotuned strategies, one shared plan cache)
@@ -58,20 +60,24 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def lm_serve(cfg: ModelConfig, model, prompts, gen: int, device="cuda") -> ServeResult:
+def lm_serve(cfg: ModelConfig, model, prompts, gen: int, device="cuda",
+             batch: dict | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, S) through ``model`` under ``cfg``, then take
     ``gen`` greedy tokens: the first from the prefill's logits, the rest
-    from ``gen - 1`` decode steps."""
+    from ``gen - 1`` decode steps. ``batch`` holds the stub inputs the
+    family takes (``"frames"`` for encdec, ``"patches"`` for vlm), moved to
+    ``device``; the caches hold the patches as well."""
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
     dev = resolve_device(device)
     ctx = Ctx(cfg)
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=dev)
-    max_len = prompts.shape[1] + gen
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in (batch or {}).items()}
+    max_len = prompts.shape[1] + gen + (cfg.num_patches or 0)
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, state = api.prefill(ctx, model, prompts, max_len)
+        logits, state = api.prefill(ctx, model, prompts, max_len, batch)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
@@ -253,6 +259,18 @@ def decode_serve_demo(
     return report
 
 
+def stub_inputs(cfg: ModelConfig, batch: int, seed: int) -> dict:
+    """The stub frontends' inputs: float32 N(0, 1) frame embeddings (encdec,
+    ``encoder_frames`` of them) or patch embeddings (vlm, ``num_patches``)
+    from a numpy generator, as numpy; none for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"frames": rng.standard_normal((batch, cfg.encoder_frames, cfg.d_model), dtype=np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal((batch, cfg.num_patches, cfg.d_model), dtype=np.float32)}
+    return {}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b")
@@ -304,7 +322,7 @@ def main(argv=None) -> None:
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = api.init_params(cfg, seed=0, device=args.device)
     prompts = np.random.default_rng(1).integers(1, cfg.vocab_size, (args.batch, args.prompt_len))
-    res = lm_serve(cfg, model, prompts, args.gen, args.device)
+    res = lm_serve(cfg, model, prompts, args.gen, args.device, stub_inputs(cfg, args.batch, 2))
     print(f"arch={cfg.name} batch={args.batch} device={args.device}")
     print(f"prefill: {args.batch * args.prompt_len / res.prefill_seconds:.0f} tok/s "
           f"({res.prefill_seconds * 1e3:.0f} ms)")

@@ -6,9 +6,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --full --arch llama3.2-3b \\
         --steps 4 --batch 4 --seq 2048 --ckpt-every 1000
 
-Trains the dense or MoE family under ``run_supervised`` on the card (on the
-CPU with ``--device cpu``): random weights from seed 0, the synthetic token
-stream from seed 0, AdamW with warmup over the first tenth of the steps.
+Trains any family under ``run_supervised`` on the card (on the CPU with
+``--device cpu``): random weights from seed 0, the synthetic token stream
+from seed 0 (with numpy N(0, 1) frames or patches from the step's seed for
+the stub frontends of whisper and phi-3-vision), AdamW with warmup over the
+first tenth of the steps.
 Attention takes the reference branch: the flash kernel has no backward.
 ``--fail-at N`` demonstrates checkpoint/restart recovery. The final
 checkpoint holds the weights and the float32 moments (about 12 bytes a
@@ -19,11 +21,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import torch
+
 from ..configs import get_config, reduced_config
 from ..data import DataConfig, SyntheticTokens
 from ..device import resolve_device
 from ..models import Ctx, api
 from ..optim import AdamWConfig
+from .serve import stub_inputs
 from ..runtime import SupervisorConfig, run_supervised, straggler_report
 
 
@@ -83,10 +88,13 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         total_steps=args.steps,
     )
-    result = run_supervised(
-        sup, build=build, data_for_step=lambda step: data.torch_batch(step, dev),
-        fail_at=args.fail_at,
-    )
+    def data_for_step(step: int) -> dict:
+        batch = data.torch_batch(step, dev)
+        stub = stub_inputs(cfg, args.batch, step)
+        batch.update({k: torch.as_tensor(v, device=dev) for k, v in stub.items()})
+        return batch
+
+    result = run_supervised(sup, build=build, data_for_step=data_for_step, fail_at=args.fail_at)
     first = sum(result.losses[:5]) / max(len(result.losses[:5]), 1)
     last = sum(result.losses[-5:]) / max(len(result.losses[-5:]), 1)
     print(

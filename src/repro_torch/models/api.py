@@ -1,24 +1,29 @@
 """Family-dispatching model API: ``init_params``, ``loss_fn``,
 ``train_step`` (loss + grad + AdamW) and ``init_opt`` for training;
-``prefill``, ``decode_step`` and ``init_decode_state`` for serving. The
-dense and MoE families are ported (both through ``transformer``); the others
-raise ``NotImplementedError``."""
+``prefill``, ``decode_step`` and ``init_decode_state`` for serving. Six
+families: dense, MoE and VLM (``transformer``), SSM (``rwkv6``), hybrid
+(``zamba2``) and encoder-decoder (``whisper``)."""
 from __future__ import annotations
 
 import torch
 
 from ..optim import AdamWConfig, AdamWState, apply_updates
 from ..optim import init as adamw_init
-from . import transformer
+from . import rwkv6, transformer, whisper, zamba2
 from .config import ModelConfig
 from .layers import Ctx
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "ssm": rwkv6,
+    "hybrid": zamba2,
+    "encdec": whisper,
+}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is {transformer.NOT_PORTED}")
     return _FAMILY[cfg.family]
 
 
@@ -27,6 +32,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 def loss_fn(ctx: Ctx, params, batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]``, with ``batch["frames"]``
+    (encdec) or ``batch["patches"]`` (vlm) where the family takes them."""
     return module_for(ctx.cfg).loss_fn(ctx, params, batch)
 
 
@@ -72,11 +79,23 @@ def init_opt(cfg: ModelConfig, params, opt_cfg: AdamWConfig) -> AdamWState:
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """The empty decode state: the recurrent state of an SSM, else caches
+    sized ``max_len``."""
+    if cfg.family == "ssm":
+        return rwkv6.init_state(cfg, batch, device)
     return module_for(cfg).init_caches(cfg, batch, max_len, device)
 
 
-def prefill(ctx: Ctx, params, tokens: torch.Tensor, max_len: int):
-    return module_for(ctx.cfg).prefill(ctx, params, tokens, max_len)
+def prefill(ctx: Ctx, params, tokens: torch.Tensor, max_len: int, batch: dict | None = None):
+    """The prompt pass: (last-token logits, decode state). ``batch`` holds
+    the encoder's ``"frames"`` (encdec) or the ``"patches"`` that precede
+    the prompt (vlm)."""
+    m = module_for(ctx.cfg)
+    if ctx.cfg.family == "encdec":
+        return m.prefill(ctx, params, tokens, max_len, batch["frames"])
+    if ctx.cfg.family == "vlm":
+        return m.prefill(ctx, params, tokens, max_len, extra_embeds=batch["patches"])
+    return m.prefill(ctx, params, tokens, max_len)
 
 
 def decode_step(ctx: Ctx, params, token: torch.Tensor, state):

@@ -1,5 +1,5 @@
-"""Shared transformer layers: norms, RoPE, GQA attention (training, prefill
-and cache decode), MLP.
+"""Shared transformer layers: norms, RoPE and sinusoidal positions, GQA
+attention (training, prefill, cache decode and cross-attention), MLP.
 
 Plain functions do the work, over any object whose attributes hold the
 parameters; the ``nn.Module`` classes here only hold them (same names and
@@ -29,6 +29,14 @@ class Ctx:
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """The weights' random stream on ``device``, seeded. On the meta device
+    (shapes and dtypes only, as :func:`repro_torch.convert` builds a model
+    to read its parameters' dtypes) a CPU generator stands in: nothing is
+    drawn there."""
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
 
 
 def _normal(shape, cfg: ModelConfig, gen: torch.Generator, device, dtype=None) -> nn.Parameter:
@@ -101,6 +109,19 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float, fraction: float) -> t
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2, rest = x[..., :half], x[..., half:rot], x[..., rot:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos, rest], dim=-1)
+
+
+def sinusoidal(seq: int, d: int, dtype: torch.dtype, device=None, start: int = 0) -> torch.Tensor:
+    """(seq, d) sine/cosine positions of ``start`` .. ``start + seq - 1``
+    (sines in the even columns, cosines in the odd), computed in float32
+    and cast last."""
+    pos = torch.arange(start, start + seq, dtype=torch.float32, device=device)[:, None]
+    step = -torch.log(torch.tensor(10000.0, device=device)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * step)
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: d // 2])
+    return pe.to(dtype)
 
 
 # -- attention -----------------------------------------------------------------
@@ -205,25 +226,29 @@ def attn_sublayer(
     pos_offset: int = 0,
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, Smax, Hkv, Dh) x2
     cache_len: int | None = None,  # valid entries in cache before this call
+    xkv: torch.Tensor | None = None,  # cross-attention source (B, Skv, D)
     causal: bool = True,
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Self-attention sublayer. Returns (out, the updated cache or the fresh
+    """Attention sublayer. Returns (out, the updated cache or the fresh
     (k, v)).
 
     - prefill: ``cache=None``, returns the (k, v) it computed;
-    - decode: ``cache`` and ``cache_len`` given, x is the new token(s).
+    - decode: ``cache`` and ``cache_len`` given, x is the new token(s);
+    - cross-attention: ``xkv`` given, keys and values from it, no rope, no
+      causal mask and no window.
     """
     cfg = ctx.cfg
     b, s, _ = x.shape
     hd, hq, hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    src = x if xkv is None else xkv
+    q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
-    if use_rope and cfg.pos_emb == "rope":
+    k = k.reshape(b, src.shape[1], hkv, hd)
+    v = v.reshape(b, src.shape[1], hkv, hd)
+    if use_rope and cfg.pos_emb == "rope" and xkv is None:
         # k takes the query positions too: at decode, the new tokens' own
         qpos = torch.arange(s, device=x.device) + pos_offset
         q = rope(q, qpos, cfg.rope_theta, cfg.rope_fraction)
@@ -238,7 +263,9 @@ def attn_sublayer(
                     kv_valid_len=cache_len + s)
         new_cache = (ck, cv)
     else:
-        o = _attend(ctx, q, k, v, causal=causal, window=cfg.sliding_window)
+        self_attn = xkv is None
+        o = _attend(ctx, q, k, v, causal=causal and self_attn,
+                    window=cfg.sliding_window if self_attn else None)
         new_cache = (k, v)
     return o.reshape(b, s, hq * hd) @ p.wo, new_cache
 

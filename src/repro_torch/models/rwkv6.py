@@ -1,0 +1,279 @@
+"""RWKV-6 "Finch": data-dependent-decay linear attention (attention-free).
+
+The recurrence S_t = diag(w_t) S_{t-1} + k_t v_t^T runs in chunks of
+``cfg.ssm_chunk`` tokens at prefill and in training: within a chunk a
+strictly lower (c x c) matrix of decay ratios exp(L_{t-1} - L_i) (float32,
+L the cumulative log decay), across chunks the carried (M x M) state a
+head. Decode takes the exact one-token recurrence.
+
+Functions take ``(ctx, params, ...)`` with ``params`` an :class:`RWKV6`;
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import Ctx, RMSNorm, _normal, dtype_of, generator, remat, rmsnorm
+from .losses import chunked_cross_entropy
+
+HEAD = 64  # rwkv6 head size M
+LORA = 32  # rank of the decay LoRA
+
+
+class RWKVState(NamedTuple):
+    s: torch.Tensor  # (L, B, H, M, M) wkv state, float32
+    tm_x: torch.Tensor  # (L, B, D) last input seen by time-mix (token shift)
+    cm_x: torch.Tensor  # (L, B, D) last input seen by channel-mix
+
+
+class Block(nn.Module):
+    """One layer: ``ln1``, the time-mix (``mu_*`` at 0.5, ``w_r/k/v/g/o``
+    (D, D), the decay ``w_decay`` at -1 and its LoRA ``w_lora_a`` (D, 32)
+    and ``w_lora_b`` (32, D), the bonus ``u_bonus`` at 0, ``ln_x``), ``ln2``
+    and the channel-mix (``cmu_k``, ``cmu_r``, ``cw_k`` (D, F), ``cw_v``
+    (F, D), ``cw_r`` (D, D)). ``w_decay``, ``w_lora_b`` and ``u_bonus`` are
+    float32 whatever the config's type."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
+        super().__init__()
+        d, f, dt = cfg.d_model, cfg.d_ff, dtype_of(cfg)
+
+        def full(value, dtype=dt):
+            return nn.Parameter(torch.full((d,), value, dtype=dtype, device=device))
+
+        self.ln1 = RMSNorm(cfg, d, device)
+        self.ln2 = RMSNorm(cfg, d, device)
+        for name in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
+            setattr(self, name, full(0.5))
+        for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+            setattr(self, name, _normal((d, d), cfg, gen, device))
+        self.w_decay = full(-1.0, torch.float32)  # base log-decay
+        self.w_lora_a = _normal((d, LORA), cfg, gen, device)
+        self.w_lora_b = _normal((LORA, d), cfg, gen, device, dtype=torch.float32)
+        self.u_bonus = full(0.0, torch.float32)
+        self.ln_x = RMSNorm(cfg, d, device)  # per-head group norm (rms)
+        self.cmu_k = full(0.5)
+        self.cmu_r = full(0.5)
+        self.cw_k = _normal((d, f), cfg, gen, device)
+        self.cw_v = _normal((f, d), cfg, gen, device)
+        self.cw_r = _normal((d, d), cfg, gen, device)
+
+
+class RWKV6(nn.Module):
+    """The weights: ``embed`` (V, D), ``blocks.<i>`` (:class:`Block`),
+    ``final_norm``, ``lm_head`` (D, V); matrices from N(0, 0.02) by a
+    generator seeded with ``seed`` on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        if cfg.d_model % HEAD:
+            raise ValueError(f"{cfg.name}: d_model {cfg.d_model} is not a multiple of {HEAD}")
+        dev = resolve_device(device)
+        gen = generator(dev, seed)
+        self.cfg = cfg
+        self.embed = _normal((cfg.vocab_size, cfg.d_model), cfg, gen, dev)
+        self.blocks = nn.ModuleList(Block(cfg, gen, dev) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg, cfg.d_model, dev)
+        self.lm_head = _normal((cfg.d_model, cfg.vocab_size), cfg, gen, dev)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> RWKV6:
+    return RWKV6(cfg, seed=seed, device=device)
+
+
+def _shift(x: torch.Tensor, last: torch.Tensor | None) -> torch.Tensor:
+    """Token shift: the x_{t-1} stream, after ``last`` (the previous call's
+    last input, zeros at the start)."""
+    head = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :].to(x.dtype)
+    return torch.cat([head, x[:, :-1]], dim=1)
+
+
+def _decay_log(p: Block, wx: torch.Tensor) -> torch.Tensor:
+    """The data-dependent log-decay exponent: base + LoRA, in float32."""
+    return p.w_decay + (wx.float() @ p.w_lora_a.float()) @ p.w_lora_b
+
+
+def _chunk(state, rr, kk, vv, ll, u, strict):
+    """One chunk of the WKV recurrence. state (B, H, M, M); rr, kk, vv, ll
+    (B, c, H, M) float32 (ll the log decays); u (H, M). Returns (o (B, c,
+    H, M), the state after the chunk)."""
+    L_inc = torch.cumsum(ll, dim=1)
+    L_exc = L_inc - ll  # L_{t-1}
+    q_dec = (rr * L_exc.exp()).permute(0, 2, 1, 3)  # (B, H, c, M)
+    k_dec = (kk * (-L_inc).exp()).permute(0, 2, 3, 1)  # (B, H, M, c)
+    vh = vv.permute(0, 2, 1, 3)  # (B, H, c, M)
+    A = torch.matmul(q_dec, k_dec).masked_fill(~strict, 0.0)  # (B, H, t, i), i < t
+    diag = (rr * u * kk).sum(-1).permute(0, 2, 1)  # (B, H, t): the bonus term
+    o = torch.matmul(A, vh) + diag[..., None] * vh + torch.matmul(q_dec, state)
+    last = L_inc[:, -1]  # (B, H, M)
+    k_tail = (kk * (last[:, None] - L_inc).exp()).permute(0, 2, 3, 1)  # (B, H, M, c)
+    state = state * last.exp()[..., None] + torch.matmul(k_tail, vh)
+    return o.permute(0, 2, 1, 3), state
+
+
+def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
+                      tm_last: torch.Tensor | None):
+    """x (B, S, D) -> (out (B, S, D), the final state (B, H, M, M), x's last
+    row). The sequence is zero-padded to a chunk multiple: r, k and v pads
+    add nothing and log-decay pads of 0 leave the state as it is. Under
+    grad each chunk is checkpointed."""
+    cfg = ctx.cfg
+    b, s, d = x.shape
+    h = d // HEAD
+    c = min(cfg.ssm_chunk, s)
+    xs = _shift(x, tm_last)
+
+    def mix(mu):
+        return x * mu + xs * (1 - mu)
+
+    r = (mix(p.mu_r) @ p.w_r).reshape(b, s, h, HEAD)
+    k = (mix(p.mu_k) @ p.w_k).reshape(b, s, h, HEAD)
+    v = (mix(p.mu_v) @ p.w_v).reshape(b, s, h, HEAD)
+    g = mix(p.mu_g) @ p.w_g
+    log_w = -_decay_log(p, mix(p.mu_w)).reshape(b, s, h, HEAD).exp()  # in (-inf, 0)
+    u = p.u_bonus.reshape(h, HEAD)
+
+    s_pad = -(-s // c) * c
+    r, k, v, log_w = (F.pad(t.float(), (0, 0, 0, 0, 0, s_pad - s)) for t in (r, k, v, log_w))
+    strict = torch.ones((c, c), dtype=torch.bool, device=x.device).tril(-1)
+    step = remat(_chunk) if torch.is_grad_enabled() else _chunk
+    state, outs = s0.float(), []
+    for lo in range(0, s_pad, c):
+        sl = slice(lo, lo + c)
+        o, state = step(state, r[:, sl], k[:, sl], v[:, sl], log_w[:, sl], u, strict)
+        outs.append(o.to(x.dtype))
+    o = torch.cat(outs, dim=1).float()[:, :s]
+    # per-head group norm, gate, output projection
+    o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x.device), cfg.norm_eps)
+    o = (o.reshape(b, s, d) * p.ln_x.w).to(x.dtype)
+    o = o * F.silu(g)
+    return o @ p.w_o, state, x[:, -1, :]
+
+
+def _time_mix_step(ctx: Ctx, p: Block, x1: torch.Tensor, s0: torch.Tensor, tm_last: torch.Tensor):
+    """The exact one-token recurrence (decode). x1 (B, D)."""
+    cfg = ctx.cfg
+    b, d = x1.shape
+    h = d // HEAD
+    xs = tm_last.to(x1.dtype)
+
+    def mix(mu):
+        return x1 * mu + xs * (1 - mu)
+
+    r = (mix(p.mu_r) @ p.w_r).reshape(b, h, HEAD).float()
+    k = (mix(p.mu_k) @ p.w_k).reshape(b, h, HEAD).float()
+    v = (mix(p.mu_v) @ p.w_v).reshape(b, h, HEAD).float()
+    g = mix(p.mu_g) @ p.w_g
+    w = (-_decay_log(p, mix(p.mu_w)).reshape(b, h, HEAD).exp()).exp()
+    u = p.u_bonus.reshape(h, HEAD)
+    s0 = s0.float()
+    kv = k[..., :, None] * v[..., None, :]  # (B, H, M, M)
+    o = torch.matmul(r[:, :, None, :], s0 + u[None, :, :, None] * kv)[:, :, 0]  # (B, H, M)
+    s_new = s0 * w[..., None] + kv
+    o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x1.device), cfg.norm_eps)
+    o = (o.reshape(b, d) * p.ln_x.w).to(x1.dtype)
+    o = o * F.silu(g)
+    return o @ p.w_o, s_new, x1
+
+
+def _channel_mix(ctx: Ctx, p: Block, x: torch.Tensor, cm_last: torch.Tensor | None):
+    """Channel-mix of x (B, S, D), shifted after ``cm_last``, or of one
+    token x (B, D) after ``cm_last`` (decode). Returns (out, x's last row)."""
+    del ctx
+    xs = _shift(x, cm_last) if x.dim() == 3 else cm_last.to(x.dtype)
+    xk = x * p.cmu_k + xs * (1 - p.cmu_k)
+    xr = x * p.cmu_r + xs * (1 - p.cmu_r)
+    k = F.relu(xk @ p.cw_k).square()
+    out = (k @ p.cw_v) * torch.sigmoid(xr @ p.cw_r)
+    return out, (x[:, -1, :] if x.dim() == 3 else x)
+
+
+def _block(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor):
+    """One layer over a whole sequence from state ``s0`` (no token carried
+    in). Returns (x, (the wkv state, time-mix last input, channel-mix last
+    input))."""
+    eps = ctx.cfg.norm_eps
+    h, s_new, tm_new = _time_mix_chunked(ctx, p, rmsnorm(x, p.ln1.w, eps), s0, None)
+    x = x + h
+    h2, cm_new = _channel_mix(ctx, p, rmsnorm(x, p.ln2.w, eps), None)
+    return x + h2, (s_new, tm_new, cm_new)
+
+
+def _block_out(ctx: Ctx, p: Block, x, s0):
+    return _block(ctx, p, x, s0)[0]
+
+
+def _zero_state(cfg: ModelConfig, b: int, device) -> torch.Tensor:
+    h = cfg.d_model // HEAD
+    return torch.zeros((b, h, HEAD, HEAD), dtype=torch.float32, device=device)
+
+
+def backbone(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
+    """Embed + layers + final norm; each layer checkpointed under grad when
+    ``cfg.remat``."""
+    x = params.embed[tokens]
+    s0 = _zero_state(ctx.cfg, tokens.shape[0], x.device)
+    run = remat(_block_out) if ctx.cfg.remat and torch.is_grad_enabled() else _block_out
+    for blk in params.blocks:
+        x = run(ctx, blk, x, s0)
+    return rmsnorm(x, params.final_norm.w, ctx.cfg.norm_eps)
+
+
+def forward(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
+    """Scoring forward: (B, S) tokens -> (B, S, V) logits."""
+    return backbone(ctx, params, tokens) @ params.lm_head
+
+
+def loss_fn(ctx: Ctx, params: RWKV6, batch: dict) -> torch.Tensor:
+    """Next-token CE of ``batch["tokens"]`` (B, S + 1)."""
+    tokens = batch["tokens"].long()
+    return chunked_cross_entropy(ctx, backbone(ctx, params, tokens[:, :-1]), params.lm_head,
+                                 tokens[:, 1:])
+
+
+def init_state(cfg: ModelConfig, batch: int, device="cuda") -> RWKVState:
+    dev = resolve_device(device)
+    h = cfg.d_model // HEAD
+    x_shape = (cfg.num_layers, batch, cfg.d_model)
+    return RWKVState(
+        s=torch.zeros((cfg.num_layers, batch, h, HEAD, HEAD), dtype=torch.float32, device=dev),
+        tm_x=torch.zeros(x_shape, dtype=torch.float32, device=dev),
+        cm_x=torch.zeros(x_shape, dtype=torch.float32, device=dev),
+    )
+
+
+@torch.inference_mode()
+def prefill(ctx: Ctx, params: RWKV6, tokens: torch.Tensor, max_len: int = 0):
+    """Absorb the prompt into the recurrent state (an SSM's cache; ``max_len``
+    is not needed). Returns (last-token logits (B, 1, V), state)."""
+    del max_len
+    x = params.embed[tokens]
+    s0 = _zero_state(ctx.cfg, tokens.shape[0], x.device)
+    states = []
+    for blk in params.blocks:
+        x, st = _block(ctx, blk, x, s0)
+        states.append(st)
+    x = rmsnorm(x[:, -1:], params.final_norm.w, ctx.cfg.norm_eps)
+    return x @ params.lm_head, RWKVState(*(torch.stack(f) for f in zip(*states)))
+
+
+@torch.inference_mode()
+def decode_step(ctx: Ctx, params: RWKV6, token: torch.Tensor, state: RWKVState):
+    """(B, 1) token -> (B, 1, V) logits and the state advanced one token."""
+    eps = ctx.cfg.norm_eps
+    x = params.embed[token[:, 0]]  # (B, D)
+    states = []
+    for i, blk in enumerate(params.blocks):
+        h, s_new, tm_new = _time_mix_step(ctx, blk, rmsnorm(x, blk.ln1.w, eps), state.s[i], state.tm_x[i])
+        x = x + h
+        h2, cm_new = _channel_mix(ctx, blk, rmsnorm(x, blk.ln2.w, eps), state.cm_x[i])
+        x = x + h2
+        states.append((s_new, tm_new, cm_new))
+    x = rmsnorm(x, params.final_norm.w, eps)
+    return (x @ params.lm_head)[:, None, :], RWKVState(*(torch.stack(f) for f in zip(*states)))

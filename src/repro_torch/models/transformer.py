@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense (llama, qwen2, mistral, glm4) and MoE (mixtral,
-moonshot) families: per-layer blocks, the training loss, prefill and
+"""Decoder-only LM, dense (llama, qwen2, mistral, glm4), MoE (mixtral,
+moonshot) and VLM (phi-3-vision: stub patch embeddings prepended to the
+tokens) families: per-layer blocks, the training loss, prefill and
 KV-cache decode, and the flat single-block parameters of the engine's
 ``moe_decode`` op.
 
@@ -21,13 +22,11 @@ from torch import nn
 from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (
-    MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, mlp_sublayer, norm, remat,
+    MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, generator, mlp_sublayer, norm,
+    remat,
 )
 from .losses import chunked_cross_entropy
 from .moe import MoE, moe_sublayer
-
-NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 10: 'LM stack: what is left')"
-
 
 class KVCaches(NamedTuple):
     k: torch.Tensor  # (L, B, Smax, Hkv, Dh)
@@ -60,15 +59,15 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = generator(dev, seed)
         self.cfg = cfg
         self.embed = _normal((cfg.vocab_size, cfg.d_model), cfg, gen, dev)
         self.blocks = nn.ModuleList(Block(cfg, gen, dev) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg, cfg.d_model, dev)
         self.lm_head = _normal((cfg.d_model, cfg.vocab_size), cfg, gen, dev)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(Ctx(self.cfg), self, tokens)
+    def forward(self, tokens: torch.Tensor, extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        return forward(Ctx(self.cfg), self, tokens, extra_embeds)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
@@ -93,26 +92,40 @@ def _block_out(ctx: Ctx, p: Block, x):
     return _block(ctx, p, x)[0]
 
 
-def backbone(ctx: Ctx, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Embed + blocks + final norm (no unembed); each block checkpointed
-    under grad when ``cfg.remat``."""
+def _embed(params: Transformer, tokens: torch.Tensor, extra_embeds: torch.Tensor | None):
+    """Token embedding, after the (B, Np, D) patch embeddings when given (vlm)."""
     x = params.embed[tokens]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def backbone(ctx: Ctx, params: Transformer, tokens: torch.Tensor,
+             extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Embed (patches first) + blocks + final norm (no unembed); each block
+    checkpointed under grad when ``cfg.remat``."""
+    x = _embed(params, tokens, extra_embeds)
     run = remat(_block_out) if ctx.cfg.remat and torch.is_grad_enabled() else _block_out
     for blk in params.blocks:
         x = run(ctx, blk, x)
     return norm(ctx, params.final_norm, x)
 
 
-def forward(ctx: Ctx, params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Scoring forward: (B, S) tokens -> (B, S, V) logits."""
-    return backbone(ctx, params, tokens) @ params.lm_head
+def forward(ctx: Ctx, params: Transformer, tokens: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Scoring forward: (B, S) tokens -> (B, [Np +] S, V) logits."""
+    return backbone(ctx, params, tokens, extra_embeds) @ params.lm_head
 
 
 def loss_fn(ctx: Ctx, params: Transformer, batch: dict) -> torch.Tensor:
     """Next-token CE of ``batch["tokens"]`` (B, S + 1): the first S tokens
-    in, the last S as labels, through :func:`chunked_cross_entropy`."""
+    in, the last S as labels, through :func:`chunked_cross_entropy`. With
+    ``batch["patches"]`` (vlm) the patch positions carry no loss."""
     tokens = batch["tokens"].long()
-    x = backbone(ctx, params, tokens[:, :-1])
+    patches = batch.get("patches")
+    x = backbone(ctx, params, tokens[:, :-1], patches)
+    if patches is not None:
+        x = x[:, patches.shape[1]:]
     return chunked_cross_entropy(ctx, x, params.lm_head, tokens[:, 1:])
 
 
@@ -135,7 +148,7 @@ def moe_decode_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict[st
     float32 config (``serve-moe``) where decode is held against the JAX
     package."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     d, dt = cfg.d_model, dtype_of(cfg)
     moe = MoE(cfg, gen, dev)
     p = {"embed": _normal((cfg.vocab_size, d), cfg, gen, dev)}
@@ -157,11 +170,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> KV
 
 
 @torch.inference_mode()
-def prefill(ctx: Ctx, params: Transformer, tokens: torch.Tensor, max_len: int):
-    """Run the prompt, build KV caches sized ``max_len``. Returns (last-token
-    logits (B, 1, V), caches)."""
-    x = params.embed[tokens]
-    b, s = tokens.shape
+def prefill(ctx: Ctx, params: Transformer, tokens: torch.Tensor, max_len: int,
+            extra_embeds: torch.Tensor | None = None):
+    """Run the prompt (after the patches, vlm), build KV caches sized
+    ``max_len`` or the prompt's length if longer. Returns (last-token logits
+    (B, 1, V), caches)."""
+    x = _embed(params, tokens, extra_embeds)
+    b, s = x.shape[:2]
     caches = init_caches(ctx.cfg, b, max(max_len, s), device=tokens.device)
     for i, blk in enumerate(params.blocks):
         x, (k, v) = _block(ctx, blk, x)

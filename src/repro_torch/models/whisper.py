@@ -1,0 +1,205 @@
+"""Whisper-small backbone: encoder-decoder transformer.
+
+The conv/mel frontend is a stub: the encoder takes precomputed frame
+embeddings (B, frames, D) and runs bidirectional self-attention over them;
+the decoder runs causal self-attention and cross-attention to the encoder's
+states. LayerNorm with bias, tanh-GELU MLPs, sinusoidal positions (no
+rope).
+
+Serving: ``prefill`` encodes the frames, runs the prompt and caches every
+decoder layer's cross K/V once; ``decode_step`` reads them through
+:func:`_cross_from_cache`, which calls ``_attend`` without a valid length,
+so under ``attn_impl="flash"`` every decode step launches the flash kernel
+once a layer (q of one row over all the frames), as the reference does.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import (
+    MLP, Attention, Ctx, RMSNorm, _attend, _normal, attn_sublayer, dtype_of, generator,
+    mlp_sublayer, norm, remat, sinusoidal,
+)
+from .losses import chunked_cross_entropy
+
+
+class WhisperCaches(NamedTuple):
+    self_k: torch.Tensor  # (L, B, Smax, Hkv, Dh)
+    self_v: torch.Tensor
+    cross_k: torch.Tensor  # (L, B, F, Hkv, Dh), written at prefill
+    cross_v: torch.Tensor
+    length: int  # valid prefix of the self-attention caches
+
+
+class EncBlock(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg, cfg.d_model, device)
+        self.ln2 = RMSNorm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, gen, device)
+        self.mlp = MLP(cfg, gen, device)
+
+
+class DecBlock(EncBlock):
+    """An encoder block's weights and the cross-attention's: ``ln_x``,
+    ``xattn``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
+        super().__init__(cfg, gen, device)
+        self.ln_x = RMSNorm(cfg, cfg.d_model, device)
+        self.xattn = Attention(cfg, gen, device)
+
+
+class Whisper(nn.Module):
+    """The weights: ``embed`` (V, D), ``enc_blocks.<i>`` (``encoder_layers``
+    of them), ``enc_norm``, ``dec_blocks.<i>`` (``num_layers``),
+    ``final_norm``, ``lm_head`` (D, V); matrices from N(0, 0.02) by a
+    generator seeded with ``seed`` on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator(dev, seed)
+        self.cfg = cfg
+        self.embed = _normal((cfg.vocab_size, cfg.d_model), cfg, gen, dev)
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg, gen, dev) for _ in range(cfg.encoder_layers))
+        self.enc_norm = RMSNorm(cfg, cfg.d_model, dev)
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, gen, dev) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg, cfg.d_model, dev)
+        self.lm_head = _normal((cfg.d_model, cfg.vocab_size), cfg, gen, dev)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Whisper:
+    return Whisper(cfg, seed=seed, device=device)
+
+
+def _enc_block(ctx: Ctx, p: EncBlock, x):
+    h, _ = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), causal=False, use_rope=False)
+    x = x + h
+    return x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x))
+
+
+def _layers(ctx: Ctx, fn):
+    """``fn``, checkpointed under grad when ``cfg.remat``."""
+    return remat(fn) if ctx.cfg.remat and torch.is_grad_enabled() else fn
+
+
+def encode(ctx: Ctx, params: Whisper, frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, F, D) stub embeddings -> the encoder's states."""
+    dt = dtype_of(ctx.cfg)
+    x = frames.to(dt) + sinusoidal(frames.shape[1], ctx.cfg.d_model, dt, frames.device)
+    run = _layers(ctx, _enc_block)
+    for blk in params.enc_blocks:
+        x = run(ctx, blk, x)
+    return norm(ctx, params.enc_norm, x)
+
+
+def _dec_block(ctx: Ctx, p: DecBlock, x, enc):
+    """A decoder layer over a whole sequence (training, prefill), its
+    cross-attention against ``enc``. Returns (x, its self (k, v), its cross
+    (k, v))."""
+    h, kv = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), use_rope=False)
+    x = x + h
+    h, xkv = attn_sublayer(ctx, p.xattn, norm(ctx, p.ln_x, x), xkv=enc, use_rope=False)
+    x = x + h
+    return x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x)), kv, xkv
+
+
+def _dec_block_out(ctx: Ctx, p: DecBlock, x, enc):
+    return _dec_block(ctx, p, x, enc)[0]
+
+
+def _embed_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[tokens]
+    return x + sinusoidal(tokens.shape[1], ctx.cfg.d_model, x.dtype, x.device)
+
+
+def _decoder(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder pass to the final norm."""
+    x = _embed_tokens(ctx, params, tokens)
+    run = _layers(ctx, _dec_block_out)
+    for blk in params.dec_blocks:
+        x = run(ctx, blk, x, enc)
+    return norm(ctx, params.final_norm, x)
+
+
+def decode_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder pass: (B, S) tokens -> (B, S, V) logits."""
+    return _decoder(ctx, params, tokens, enc) @ params.lm_head
+
+
+def forward(ctx: Ctx, params: Whisper, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
+    return decode_tokens(ctx, params, tokens, encode(ctx, params, frames))
+
+
+def loss_fn(ctx: Ctx, params: Whisper, batch: dict) -> torch.Tensor:
+    """Next-token CE of ``batch["tokens"]`` (B, S + 1) given
+    ``batch["frames"]``."""
+    tokens = batch["tokens"].long()
+    x = _decoder(ctx, params, tokens[:, :-1], encode(ctx, params, batch["frames"]))
+    return chunked_cross_entropy(ctx, x, params.lm_head, tokens[:, 1:])
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> WhisperCaches:
+    dev, dt = resolve_device(device), dtype_of(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
+    xshape = (cfg.num_layers, batch, cfg.encoder_frames, cfg.num_kv_heads, cfg.hd)
+    return WhisperCaches(
+        self_k=torch.zeros(shape, dtype=dt, device=dev), self_v=torch.zeros(shape, dtype=dt, device=dev),
+        cross_k=torch.zeros(xshape, dtype=dt, device=dev), cross_v=torch.zeros(xshape, dtype=dt, device=dev),
+        length=0,
+    )
+
+
+@torch.inference_mode()
+def prefill(ctx: Ctx, params: Whisper, tokens: torch.Tensor, max_len: int, frames: torch.Tensor):
+    """Encode the frames and run the prompt; the self caches (sized
+    ``max_len``) hold the prompt's keys and values, the cross caches every
+    layer's keys and values of the encoder's states. Returns (last-token
+    logits (B, 1, V), caches)."""
+    enc = encode(ctx, params, frames)
+    b, s = tokens.shape
+    caches = init_caches(ctx.cfg, b, max_len, device=tokens.device)
+    x = _embed_tokens(ctx, params, tokens)
+    for i, blk in enumerate(params.dec_blocks):
+        x, (k, v), (xk, xv) = _dec_block(ctx, blk, x, enc)
+        caches.self_k[i, :, :s] = k
+        caches.self_v[i, :, :s] = v
+        caches.cross_k[i] = xk
+        caches.cross_v[i] = xv
+    x = norm(ctx, params.final_norm, x[:, -1:])
+    return x @ params.lm_head, caches._replace(length=s)
+
+
+def _cross_from_cache(ctx: Ctx, p: Attention, x, xk, xv):
+    """Cross-attention over cached K/V: only the q and o projections run."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    q = (x @ p.wq).reshape(b, s, cfg.num_heads, cfg.hd)
+    o = _attend(ctx, q, xk, xv, causal=False, window=None)
+    return o.reshape(b, s, cfg.num_heads * cfg.hd) @ p.wo
+
+
+@torch.inference_mode()
+def decode_step(ctx: Ctx, params: Whisper, token: torch.Tensor, caches: WhisperCaches):
+    """One decoder step: (B, 1) token -> (B, 1, V) logits; the new self
+    entries are written into ``caches``' own tensors."""
+    ln = caches.length
+    x = params.embed[token]
+    x = x + sinusoidal(1, ctx.cfg.d_model, x.dtype, x.device, start=ln)
+    for i, blk in enumerate(params.dec_blocks):
+        h, _ = attn_sublayer(ctx, blk.attn, norm(ctx, blk.ln1, x), cache=(caches.self_k[i], caches.self_v[i]),
+                             cache_len=ln, use_rope=False)
+        x = x + h
+        x = x + _cross_from_cache(ctx, blk.xattn, norm(ctx, blk.ln_x, x), caches.cross_k[i],
+                                  caches.cross_v[i])
+        x = x + mlp_sublayer(ctx, blk.mlp, norm(ctx, blk.ln2, x))
+    x = norm(ctx, params.final_norm, x)
+    return x @ params.lm_head, caches._replace(length=ln + token.shape[1])

@@ -483,6 +483,66 @@ def test_flash_attn_kernel_matches_plain(cuda, case, d, dtype):
         assert not got[:, : sq - skv].any()
 
 
+# the flash instances the LM families launch when served at full width,
+# bf16: (B·Hq, B·Hkv, Sq, Skv, causal, D). whisper-small's encoder (1500
+# frames: ragged in 128-key tiles), its cross-attention at prefill (a
+# 224-token prompt) and at decode (one q row over every frame), zamba2-2.7b's
+# shared block (D 80) and phi-3-vision-4.2b (D 96, 576 patches + 1472 tokens)
+FAMILY_INSTANCES = [
+    pytest.param((48, 48, 1500, 1500, False, 64), id="whisper-encoder"),
+    pytest.param((48, 48, 224, 1500, False, 64), id="whisper-cross-prefill"),
+    pytest.param((48, 48, 1, 1500, False, 64), id="whisper-cross-decode"),
+    pytest.param((128, 128, 2048, 2048, True, 80), id="zamba2-shared-block"),
+    pytest.param((128, 128, 2048, 2048, True, 96), id="phi-3-vision"),
+]
+
+
+@pytest.mark.parametrize("case", FAMILY_INSTANCES)
+def test_flash_attn_at_the_families_instances(cuda, case):
+    bhq, bhkv, sq, skv, causal, d = case
+    gen = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn((n, s, d), generator=gen).to(cuda, torch.bfloat16)
+               for n, s in ((bhq, sq), (bhkv, skv), (bhkv, skv)))
+    got = flash_attn(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal, block_k=kernel_block_k(torch.bfloat16, d))
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    if not causal:  # a row's output reads only its own q row: one row alone is the same row
+        one = flash_attn(q[:, -1:].contiguous(), k, v, causal=False)
+        torch.testing.assert_close(one.float(), got[:, -1:].float(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "whisper-small", "phi-3-vision-4.2b"])
+def test_family_prefill_and_decode_step_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced float32 config of each family, the same weights on the
+    card and on the CPU, flash attention where the family has attention:
+    a prefill and one decode step. float32 without TF32; cuBLAS and the
+    flash kernel sum in other orders than the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import Ctx, api
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(reduced_config(arch), attn_impl="flash")
+    cpu_model = api.init_params(cfg, seed=0, device="cpu")
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 40)))
+    stub = {k: torch.as_tensor(a) for k, a in stub_inputs(cfg, 2, 2).items()}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = api.init_params(cfg, seed=1, device=dev)
+        model.load_state_dict(cpu_model.state_dict())
+        batch = {k: t.to(dev) for k, t in stub.items()}
+        before = flash_attn.launches
+        logits, state = api.prefill(Ctx(cfg), model, prompts.to(dev), 48 + (cfg.num_patches or 0), batch)
+        step, _ = api.decode_step(Ctx(cfg), model, prompts[:, -1:].to(dev), state)
+        out[str(dev)] = (logits.cpu(), step.cpu(), flash_attn.launches - before)
+    (lc, sc, n_cpu), (lg, sg, n_card) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sg, sc, rtol=1e-4, atol=1e-4)
+    assert n_cpu == 0 and n_card == {"ssm": 0, "hybrid": 2, "encdec": 6 + 2, "vlm": 2}[cfg.family]
+
+
 def test_flash_attention_op_on_the_card(cuda):
     gen = torch.Generator().manual_seed(5)
     q = torch.randn((2, 24, 200, 128), generator=gen).to(cuda, torch.bfloat16)

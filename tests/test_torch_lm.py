@@ -16,7 +16,7 @@ import repro.models.transformer as JT
 import repro_torch.configs as TC
 import repro_torch.models.layers as TL
 import repro_torch.models.transformer as TT
-from repro_torch.convert import kv_caches_from_numpy, lm_params_from_numpy
+from repro_torch.convert import decode_state_from_numpy, lm_params_from_numpy
 from repro_torch.models import api
 
 ARCHS = ["llama3.2-3b", "qwen2-7b", "glm4-9b"]  # plain GQA, qkv_bias, rope_fraction=0.5
@@ -71,12 +71,34 @@ def test_configs_identical(arch):
     assert sorted(TC.ARCHS) == sorted(JC.ARCHS)
 
 
-def test_other_families_raise_not_implemented():
-    # the families still unported; the MoE family is served since its port
-    # (tests/test_torch_lm_moe.py::test_moe_family_is_served)
-    for arch in ("rwkv6-3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.init_params(TC.reduced_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", sorted(TC.ARCHS))
+def test_every_family_builds_through_the_api(arch):
+    """Every config's family has a module (the families past dense and MoE
+    raised NotImplementedError before their port)."""
+    cfg = TC.reduced_config(arch)
+    module = api.module_for(cfg)
+    assert module.__name__.rsplit(".", 1)[-1] == {
+        "dense": "transformer", "moe": "transformer", "vlm": "transformer", "ssm": "rwkv6",
+        "hybrid": "zamba2", "encdec": "whisper"}[TC.get_config(arch).family]
+    model = api.init_params(cfg, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) > 0
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "whisper-small", "phi-3-vision-4.2b"])
+def test_family_entry_points_ask_for_the_card_by_default(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.convert import decode_state_from_numpy, lm_params_from_numpy
+    from repro_torch.launch.serve import lm_serve
+
+    cfg = TC.reduced_config(arch)
+    model = api.init_params(cfg, device="cpu")
+    for call in (lambda: api.init_params(cfg), lambda: api.init_decode_state(cfg, 1, 8),
+                 lambda: lm_params_from_numpy(cfg, {}),
+                 lambda: decode_state_from_numpy(cfg, api.init_decode_state(cfg, 1, 8, device="cpu")),
+                 lambda: lm_serve(cfg, model, np.ones((1, 4)), 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_init_decode_state_matches_jax_caches():
@@ -215,7 +237,8 @@ def test_decode_from_converted_jax_caches():
     jcfg, jparams, tcfg, model = both_models("qwen2-7b")
     prompt = _tokens(tcfg, 2, 12, 9)
     _, wc = JT.prefill(JL.Ctx(jcfg), jparams, jnp.asarray(prompt), 16)
-    caches = kv_caches_from_numpy(tcfg, np.asarray(wc.k), np.asarray(wc.v), wc.length, device="cpu")
+    caches = decode_state_from_numpy(tcfg, {"k": np.asarray(wc.k), "v": np.asarray(wc.v), "length": wc.length},
+                                     device="cpu")
     tok = _tokens(tcfg, 2, 1, 10)
     wl, _ = JT.decode_step(JL.Ctx(jcfg), jparams, jnp.asarray(tok, jnp.int32), wc)
     gl, gc = api.decode_step(TL.Ctx(tcfg), model, torch.from_numpy(tok), caches)
