@@ -36,6 +36,21 @@ result, without them or outside a checkout of the repository. In order:
    occupancy, steals); then a request whose inputs the default stream is
    still writing, dedup of 8 identical requests (with the content hash's
    host time), a rejected burst, a shed deadline and ``autotune=True``;
+3b. serves the same stream through worker processes (phase "cluster plane"):
+   clusters of 1, 2 and 4 processes (``repro_torch.cluster``), each worker an
+   ``EngineService`` on ``cuda`` with its own CUDA context, the kernels built
+   once before they start; the coordinator submits host copies of the
+   inputs, each worker keeps the blobs it serves on the card (the blob
+   budget set to hold the stream's inputs); the stream open loop at the
+   serving phase's rate, then as one burst, every result ``torch.equal`` to
+   ``engine.run``, at least two workers serving at 2 and 4; a ``cluster
+   {...}`` line per size (requests/s, latency, served per worker, launch to
+   ready, card memory per worker, blob hits and misses, the largest blob's
+   verify ms, bytes on the wire against inline base64 encoding, held at 3x,
+   kernel launches per worker); at 2 workers also ``EngineService(substrate=
+   "cluster")`` forwarding the kernels, and a SIGKILL mid-burst whose
+   futures all terminate with equal results. The workers stop before the LM
+   phases;
 4. autotunes on the card (phase "autotune + calibration (cuda)"): ranks
    SpMV and BFS (probes of the top 3) and GSANA (a probe of the top 1) on
    the same inputs with the uncalibrated profile, runs ``strategy="auto"``
@@ -204,6 +219,11 @@ CARD_VS_CPU_TOL = dict(rtol=1e-4, atol=1e-4)
 # the serving phase: requests of the mixed stream (the six main-path
 # signatures in turn) and the executor-pool widths it is served at
 SERVE_REQUESTS, SERVE_WORKERS = 24, (1, 2, 4)
+# the cluster phase: worker processes a cluster (one EngineService each, one
+# pool slot), and the least ratio of the bytes an inline base64 wire would
+# have sent for the stream to what the framed wire sent (the JAX package's
+# data-plane gate, benchmarks/cluster_suite.py --require-wire-reduction)
+CLUSTER_WORKERS, CLUSTER_WIRE_REDUCTION = (1, 2, 4), 3.0
 # the MoE LM served at full width (48 layers, 64 experts top-6, bf16) at the
 # LM's batch and prompt, greedy tokens; the depth of the stack the flash
 # and reference branches are held on instead if routing flips explain a
@@ -322,7 +342,10 @@ def main() -> int:
         return finish(smoke)
     launches = smoke.phase("main path through engine.run on the cuda substrate",
                            main_path, smoke, inputs)
-    smoke.phase("serving plane (EngineService on cuda)", serving_path, smoke, inputs)
+    serving = smoke.phase("serving plane (EngineService on cuda)", serving_path, smoke, inputs)
+    if serving is not None:
+        smoke.phase("cluster plane (worker processes on the card)", cluster_path, smoke, inputs,
+                    serving)
     smoke.phase("CSR-stripe SpMV through spmv(variant='stripe'), timed", stripe_path, smoke,
                 inputs)
     smoke.phase(f"GSANA at a coarse grid (pick_grid(n, {COARSE_BUCKET})) through engine.run, "
@@ -603,6 +626,7 @@ def serving_path(smoke: Smoke, inputs: dict) -> None:
           f"launches {counts}; open-loop rate {rate:.1f} req/s", flush=True)
 
     # the worker loop at each pool width, open-loop jittered arrivals
+    rows = []
     for workers in SERVE_WORKERS:
         rng = np.random.default_rng(0)
         svc = EngineService(cache=PlanCache(), substrate=sub, device=dev, workers=workers,
@@ -629,6 +653,8 @@ def serving_path(smoke: Smoke, inputs: dict) -> None:
         for resp in responses:
             by_op.setdefault(resp.report.op, []).append(resp.report.seconds * 1e3)
         report = svc.throughput_report()
+        rows.append({"workers": workers, "requests_per_second": stats.requests_per_second,
+                     "total_p50_ms": stats.total_p50 * 1e3, "total_p99_ms": stats.total_p99 * 1e3})
         print("  service " + json.dumps({
             "workers": workers, "requests": stats.requests, "rate_offered": rate,
             "requests_per_second": stats.requests_per_second,
@@ -727,6 +753,216 @@ def serving_path(smoke: Smoke, inputs: dict) -> None:
         serial = strategy_dict(choose_strategy(op, inputs[op], sub))
         print(f"  autotune service {op}: {pick} (serial choose_strategy: "
               f"{'same' if pick == serial else serial})", flush=True)
+    return {"rate": rate, "service": rows}
+
+
+def inline_frame_bytes(request) -> int:
+    """Bytes one submit of ``request`` takes on an inline wire (an 8-byte
+    length prefix, then the whole request as JSON with every array in
+    base64), computed from the framed encoding without building the base64
+    text."""
+    from repro_torch.engine import SegmentTable
+
+    table = SegmentTable()
+    payload = request.to_wire(segments=table)
+
+    def inline(node):
+        if isinstance(node, dict):
+            if node.get("__wire__") == "ndref":
+                return {"__wire__": "nd", "dtype": node["dtype"], "shape": node["shape"], "data": ""}
+            return {k: inline(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [inline(v) for v in node]
+        return node
+
+    frame = json.dumps({"kind": "submit", "request": inline(payload), "ticket": 0},
+                       separators=(",", ":"))
+    return 8 + len(frame.encode("utf-8")) + sum(4 * ((len(seg) + 2) // 3) for seg in table.segments)
+
+
+def app_memory_mib() -> dict:
+    """Card memory of each compute process, by pid, as nvidia-smi lists them
+    (empty where it lists none, as it may in a container)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mem = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, used = line.partition(",")
+        if pid.strip().isdigit() and used.strip().isdigit():
+            mem[int(pid)] = int(used)
+    return mem
+
+
+def cluster_path(smoke: Smoke, inputs: dict, serving: dict) -> None:
+    """The serving phase's stream through worker processes on the card
+    (``repro_torch.cluster``): for each size of :data:`CLUSTER_WORKERS`, a
+    cluster of processes each running ``EngineService(substrate="cuda",
+    workers=1)`` with its own CUDA context serves the 24 requests open loop
+    at the serving phase's rate and once more as one burst, every result
+    ``torch.equal`` to ``engine.run`` on the card; at two workers and more at
+    least two served. The coordinator submits host copies of the inputs;
+    each worker holds the blobs it serves on the card. At two workers the
+    ``cluster`` substrate serves the stream through ``EngineService``
+    (kernel forwarding), and a SIGKILL mid-burst fails over. Prints a
+    ``cluster {...}`` line per size (requests/s, latency, served per worker,
+    launch to ready, card memory per worker, blob hits and misses, the
+    largest blob's verify ms, wire bytes against inline encoding, kernel
+    launches per worker), held at :data:`CLUSTER_WIRE_REDUCTION`."""
+    import os
+    import signal
+
+    from repro_torch.cluster import launch_cluster
+    from repro_torch.cluster.blobs import blob_min_bytes_default
+    from repro_torch.engine import CudaSubstrate, EngineService, PlanCache, Request, run
+    from repro_torch.engine.wire import to_device
+
+    dev = inputs["spmv"].x.device
+    sigs = serve_signatures(inputs)
+    order = [i % len(sigs) for i in range(SERVE_REQUESTS)]
+    want = [to_device(run(Request(op, inp, st, CudaSubstrate(dev)), iters=1, warmup=0)[0], "cpu")
+            for op, inp, st in sigs]
+    host = {op: to_device(inputs[op], "cpu") for op in ("spmv", "bfs", "gsana")}
+    host_sigs = [(op, host[op], st) for op, _, st in sigs]
+    named = CudaSubstrate("cpu")  # crosses the wire by name; each worker builds it on its card
+
+    def requests():
+        return [Request(*host_sigs[i], named) for i in order]
+
+    # every blob-sized tensor of the stream's inputs, counted once
+    blob_bytes = {}
+    for op in host:
+        for t in dataclass_tensors(host[op]):
+            if t.numel() * t.element_size() >= blob_min_bytes_default():
+                blob_bytes[id(t)] = t.numel() * t.element_size()
+    budget = 2 * sum(blob_bytes.values())
+    inline = [inline_frame_bytes(r) for r in requests()]
+    print(f"  inputs: {len(blob_bytes)} blobs, {sum(blob_bytes.values())} bytes; blob budget "
+          f"{budget} bytes (REPRO_BLOB_BUDGET_BYTES); inline wire {sum(inline)} bytes a stream",
+          flush=True)
+    rate = serving["rate"]
+
+    def check(responses, what):
+        smoke.check(len(responses) == len(order), f"{what}: {len(responses)} responses")
+        for i, resp in zip(order, responses):
+            smoke.check(same_result(resp.result, want[i]),
+                        f"{what}: request {resp.ticket} ({sigs[i][0]}) differs from engine.run")
+
+    def drive(cluster, open_loop):
+        rng = np.random.default_rng(0)
+        futures = []
+        for r in requests():
+            futures.append(cluster.submit(r))
+            if open_loop:
+                time.sleep((0.5 + rng.random()) / rate)
+        responses = [f.result(timeout=600) for f in futures]
+        lat = sorted(f.done_at - f.submitted_at for f in futures)
+        wall = max(f.done_at for f in futures) - min(f.submitted_at for f in futures)
+        return responses, {"requests_per_second": len(futures) / wall,
+                           "total_p50_ms": lat[len(lat) // 2] * 1e3,
+                           "total_p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3}
+
+    old_budget = os.environ.get("REPRO_BLOB_BUDGET_BYTES")
+    os.environ["REPRO_BLOB_BUDGET_BYTES"] = str(budget)
+    try:
+        for n in CLUSTER_WORKERS:
+            free_before, _ = torch.cuda.mem_get_info(dev)
+            t0 = time.perf_counter()
+            with launch_cluster(n, service_workers=1, activate=(n == 2), wait_timeout=300) as cluster:
+                ready_s = time.perf_counter() - t0
+                coord = cluster.coordinator
+                responses, open_row = drive(cluster, open_loop=True)
+                check(responses, f"cluster N={n} open loop")
+                responses, burst_row = drive(cluster, open_loop=False)
+                check(responses, f"cluster N={n} burst")
+                free_after, _ = torch.cuda.mem_get_info(dev)
+                stats = coord.stats()
+                served = {w["worker_id"]: w["served"] for w in stats["workers"]}
+                if n >= 2:
+                    smoke.check(sum(1 for v in served.values() if v > 0) >= 2,
+                                f"cluster N={n}: only {served} served (distribution is not real)")
+                rows = {w: coord.worker_stats(w) for w in served}
+                smi = app_memory_mib()
+                ratio = 2 * sum(inline) / max(1, stats["wire_bytes_sent"])
+                row = {
+                    "workers": n, "launch_to_ready_s": ready_s, "open_loop": open_row,
+                    "burst": burst_row, "rate_offered": rate, "served": served,
+                    "card_mib_nvidia_smi": {w: smi.get(r["pid"]) for w, r in rows.items()},
+                    "card_bytes_reserved": {w: r.get("device_memory", {}).get("reserved")
+                                            for w, r in rows.items()},
+                    "card_used_delta_bytes": free_before - free_after,
+                    "worker_service_p50_ms": {w: r["service_p50"] * 1e3 for w, r in rows.items()},
+                    "worker_total_p50_ms": {w: r["total_p50"] * 1e3 for w, r in rows.items()},
+                    "blob_hits": stats["blob_hits"], "blob_misses": stats["blob_misses"],
+                    "largest_blob_bytes": max(r["blob_store"]["largest_verified_bytes"]
+                                              for r in rows.values()),
+                    "largest_blob_verify_ms": max(r["blob_store"]["largest_verify_ms"]
+                                                  for r in rows.values()),
+                    "wire_bytes_sent": stats["wire_bytes_sent"], "inline_bytes": 2 * sum(inline),
+                    "wire_reduction": ratio, "submits_coalesced": stats["submits_coalesced"],
+                    "launches": {w: r["kernel_launches"] for w, r in rows.items()},
+                }
+                print("  cluster " + json.dumps(row), flush=True)
+                smoke.check(ratio >= CLUSTER_WIRE_REDUCTION,
+                            f"cluster N={n}: wire reduction {ratio:.2f}x < {CLUSTER_WIRE_REDUCTION}x")
+                if n != 2:
+                    continue
+                # the forwarding path: the executor pool over the workers
+                svc = EngineService(cache=PlanCache(), substrate="cluster", device="cpu",
+                                    workers="auto").start()
+                fwd_rates = []
+                try:
+                    for _ in range(2):  # cold (the coordinator's host models), then warm
+                        t1 = time.perf_counter()
+                        futures = [svc.submit(Request(*host_sigs[i], "cluster")) for i in order]
+                        responses = [f.result(timeout=600) for f in futures]
+                        fwd_rates.append(len(order) / (time.perf_counter() - t1))
+                        check(responses, "EngineService(substrate='cluster')")
+                finally:
+                    svc.stop(timeout=600)
+                smoke.check(coord.stats()["kernel_calls"] >= 2 * len(order),
+                            "EngineService(substrate='cluster'): kernels did not cross processes")
+                print(f"  cluster substrate: EngineService(substrate='cluster', workers='auto') "
+                      f"over {n} workers ({svc.stats().workers} slots): {fwd_rates[0]:.1f} req/s "
+                      f"cold, {fwd_rates[1]:.1f} warm, beside Cluster.submit's burst "
+                      f"{burst_row['requests_per_second']:.1f}", flush=True)
+                # one SIGKILL mid-burst: every future terminates, results equal
+                before = coord.stats()
+                futures = [cluster.submit(r) for r in requests()]
+                victim = coord.healthy_workers()[0].worker_id
+                cluster.kill_worker(victim, sig=signal.SIGKILL)
+                responses = [f.result(timeout=600) for f in futures]
+                check(responses, "cluster failover")
+                after = coord.stats()
+                smoke.check(after["failovers"] == before["failovers"] + 1 and after["n_healthy"] == 1,
+                            f"cluster failover: {after['failovers']} failovers, "
+                            f"{after['n_healthy']} healthy")
+                print(f"  cluster failover: SIGKILL worker {victim} with {len(futures)} requests in "
+                      f"flight; all terminated, bit-identical; retries "
+                      f"{after['retries'] - before['retries']}, failovers {after['failovers']}, "
+                      f"blob misses {after['blob_misses'] - before['blob_misses']}", flush=True)
+    finally:
+        if old_budget is None:
+            os.environ.pop("REPRO_BLOB_BUDGET_BYTES", None)
+        else:
+            os.environ["REPRO_BLOB_BUDGET_BYTES"] = old_budget
+    print("  serving phase beside it (threads in one process): " + json.dumps(serving["service"]),
+          flush=True)
+
+
+def dataclass_tensors(value) -> list:
+    """Every tensor among a dataclass's fields (one level of nesting deep
+    per field, as the main path's inputs hold them)."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(value):
+        v = getattr(value, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out.extend(dataclass_tensors(v))
+    return out
 
 
 def bfs_frontiers(g) -> list:

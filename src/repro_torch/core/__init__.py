@@ -4,6 +4,7 @@ from .bfs import (
     UNVISITED,
     BFSRunStats,
     bfs_bytes_moved,
+    bfs_effective_bandwidth,
     bfs_local,
     bfs_traffic,
     teps,
@@ -15,6 +16,7 @@ from .gsana import (
     Placement,
     PlanStats,
     compute_similarity,
+    gsana_effective_bw,
     gsana_rw_bytes,
     layout_blk,
     layout_hcb,

@@ -169,6 +169,11 @@ def bfs_bytes_moved(n_edges: int) -> int:
     return n_edges * 2 * 8
 
 
+def bfs_effective_bandwidth(scale: int, seconds: float, edge_factor: int = 16) -> float:
+    """Paper §5.2: BW = 16 * 2^scale * 2 * 8 / time = TEPS * 16."""
+    return bfs_bytes_moved(edge_factor * (1 << scale)) / max(seconds, 1e-12)
+
+
 def validate_parents(g: PartitionedGraph, root: int, parents) -> bool:
     """Graph500-style validation: root ok, every parent edge exists, and
     every reached vertex hangs off the root through its parent chain.

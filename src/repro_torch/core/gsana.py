@@ -399,3 +399,11 @@ def gsana_rw_bytes(
             ).sum()
             words += int(c2[b]) + int(c2[b]) * int(c1[bp]) + int(rw)
     return words * word_bytes
+
+
+def gsana_effective_bw(
+    vs1: VertexSet, vs2: VertexSet, b1: Buckets, b2: Buckets, seconds: float,
+    word_bytes: int = 8,
+) -> float:
+    """Paper §5.3 bandwidth: the RW-model volume over wall time."""
+    return gsana_rw_bytes(vs1, vs2, b1, b2, word_bytes) / max(seconds, 1e-12)

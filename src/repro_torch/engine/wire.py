@@ -31,7 +31,9 @@ Encoding rules (``encode_value``):
   * content-addressed ``{"__wire__": "blobref", "digest", "dtype",
     "shape"}`` when a ``blob_sink`` claims the array — the bytes do not
     travel with the envelope; the receiver resolves the digest through
-    ``blob_resolver`` on decode.
+    ``blob_resolver`` on decode. The sink is asked before any host copy is
+    made: a card-resident tensor whose digest the sink already knows
+    crosses as a blobref without leaving the card.
 
   A tensor's host copy is ``t.detach().cpu().contiguous()``. ``bfloat16``
   has no numpy dtype: its raw 2-byte buffer travels under the dtype string
@@ -115,6 +117,25 @@ def host_array(value: Any) -> "tuple[np.ndarray, str]":
     return arr, str(arr.dtype)
 
 
+def wire_meta(value: Any) -> "tuple[str, list[int]]":
+    """``(wire dtype string, shape)`` of a tensor or array-like, as
+    :func:`host_array` would give them, without copying a tensor to the
+    host (a 0-d value has shape ``[1]``)."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype == torch.bfloat16:
+            return _BF16, list(value.shape) or [1]
+        return str(torch.empty(0, dtype=value.dtype).numpy().dtype), list(value.shape) or [1]
+    arr, dtype = host_array(value)
+    return dtype, list(arr.shape)
+
+
+def array_nbytes(value: Any) -> int:
+    """Bytes of a tensor's or array-like's buffer, without a host copy."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return int(np.asarray(value).nbytes)
+
+
 def _byte_view(arr: np.ndarray) -> Any:
     """A flat byte view of a C-contiguous array (no copy when the buffer
     protocol allows it; ``tobytes`` otherwise)."""
@@ -161,11 +182,11 @@ def encode_value(
     """Encode ``value`` into the JSON-compatible wire form (module doc).
 
     ``segments`` switches arrays to out-of-band ``ndref`` form (raw buffer
-    appended to the table, no base64). ``blob_sink(original, contiguous)``
-    is consulted first for every array: returning a digest string emits a
-    ``blobref``; returning ``None`` falls through to the segment/inline
-    path. Neither affects :func:`canonical_bytes`, which always encodes
-    inline.
+    appended to the table, no base64). ``blob_sink(original)`` is consulted
+    first for every array, before its host copy is made: returning a digest
+    string emits a ``blobref`` (dtype and shape from :func:`wire_meta`);
+    returning ``None`` falls through to the segment/inline path. Neither
+    affects :func:`canonical_bytes`, which always encodes inline.
     """
     if isinstance(value, enum.Enum):
         # before the scalar pass-through: str/int-mixin enums (Comm, Layout,
@@ -178,12 +199,13 @@ def encode_value(
     if value is None or isinstance(value, (bool, int, str, float)):
         return value  # json round-trips NaN/Infinity via its literals
     if hasattr(value, "shape") and hasattr(value, "dtype"):
+        if blob_sink is not None:
+            digest = blob_sink(value)
+            if digest is not None:
+                dtype, shape = wire_meta(value)
+                return {_TAG: "blobref", "digest": digest, "dtype": dtype, "shape": shape}
         arr, dtype = host_array(value)
         shape = list(arr.shape)
-        if blob_sink is not None:
-            digest = blob_sink(value, arr)
-            if digest is not None:
-                return {_TAG: "blobref", "digest": digest, "dtype": dtype, "shape": shape}
         if segments is not None:
             return {_TAG: "ndref", "seg": segments.add(_byte_view(arr)), "dtype": dtype,
                     "shape": shape}
@@ -325,6 +347,30 @@ def content_digest(value: Any) -> str:
     content-addressed identity (dedup hashes whole requests with it; a
     blob store addresses single arrays with it)."""
     return hashlib.sha256(canonical_bytes(value)).hexdigest()
+
+
+# raw bytes one step of array_digest base64-encodes: a multiple of 3, so the
+# steps' texts concatenate to the whole buffer's, and small enough that a
+# thread verifying a large blob lets the others run between steps
+_DIGEST_STEP = 3 << 18
+
+
+def array_digest(value: Any) -> str:
+    """:func:`content_digest` of one tensor or array-like, computed without
+    building its canonical bytes: the base64 text is hashed in steps of
+    :data:`_DIGEST_STEP` raw bytes between the JSON around it, so a blob of
+    hundreds of MB needs no text of its size and never holds the
+    interpreter lock for long."""
+    arr, dtype = host_array(value)
+    text = json.dumps({_TAG: "nd", "data": "", "dtype": dtype, "shape": list(arr.shape)},
+                      sort_keys=True, separators=(",", ":"))
+    head, tail = text.split('"data":""')
+    h = hashlib.sha256(f'{head}"data":"'.encode("utf-8"))
+    flat = _byte_view(arr)
+    for i in range(0, len(flat), _DIGEST_STEP):
+        h.update(base64.b64encode(flat[i:i + _DIGEST_STEP]))
+    h.update(f'"{tail}'.encode("utf-8"))
+    return h.hexdigest()
 
 
 def dumps(value: Any) -> bytes:

@@ -23,6 +23,16 @@ twice the QoS weight.
     PYTHONPATH=src python -m repro_torch.launch.serve --ops-async --ops-workers 2 \\
         --ops-rate 100 --ops-admission reject [--device cpu]
 
+Cluster path (``--cluster N``): the same mixed SpMV/BFS stream served by N
+worker processes (``repro_torch.cluster``), each with its own
+``EngineService`` on the ``cuda`` substrate and its own CUDA context, every
+response held against single-process ``engine.run`` with ``torch.equal``;
+``--cluster-kill-one`` SIGKILLs one worker mid-stream (its in-flight
+requests are retried once on a survivor).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --ops --cluster 2 \\
+        [--cluster-kill-one] [--device cpu]
+
 MoE decode path (``--decode-serve``): continuous-batched decode of the
 ``serve-moe`` config through ``DecodeServer``, each step
 one request through the ``EngineService`` worker loop with an SLO target,
@@ -193,6 +203,64 @@ def ops_demo_async(
     return report
 
 
+def cluster_demo(
+    n_workers: int,
+    n_requests: int = 24,
+    shapes: tuple[int, ...] = (16, 24),
+    seed: int = 0,
+    kill_one: bool = False,
+    device="cuda",
+) -> dict:
+    """Serve the mixed SpMV/BFS stream on an ``n_workers``-process cluster
+    whose workers run the ``cuda`` substrate on ``device``, and hold every
+    response bit for bit against single-process ``engine.run``.
+    ``kill_one=True`` SIGKILLs one worker mid-stream: every future still
+    terminates and parity still holds (in-flight requests are retried once
+    on a survivor)."""
+    from ..cluster import launch_cluster
+    from ..engine import CudaSubstrate, Request, run
+    from ..engine.wire import to_device
+
+    dev = resolve_device(device)
+    pick = _ops_workload(shapes, seed, dev)
+    sub = CudaSubstrate(dev)
+    requests = [Request(*pick(i), None, sub) for i in range(n_requests)]
+    t_start = time.perf_counter()
+    with launch_cluster(n_workers, device=str(dev)) as cluster:
+        t_up = time.perf_counter() - t_start
+        t0 = time.perf_counter()
+        futures = [cluster.submit(r) for r in requests]
+        if kill_one and n_workers > 1:
+            victim = cluster.coordinator.healthy_workers()[0].worker_id
+            print(f"SIGKILLing worker {victim} mid-stream ...")
+            cluster.kill_worker(victim)
+        responses = [f.result(timeout=600) for f in futures]  # every future terminates
+        wall = time.perf_counter() - t0
+        # results cross the wire as CPU tensors
+        mismatches = sum(
+            not torch.equal(response.result, to_device(run(request, iters=1, warmup=0)[0], "cpu"))
+            for request, response in zip(requests, responses)
+        )
+        stats = cluster.stats()
+    per_worker = {w["worker_id"]: w["served"] for w in stats["workers"]}
+    print(f"cluster up ({n_workers} workers, device={dev}) in {t_up:.1f}s; served "
+          f"{len(responses)} requests in {wall * 1e3:.0f} ms "
+          f"({len(responses) / max(wall, 1e-9):.0f} req/s)")
+    print(f"per-worker served: {per_worker}, retries: {stats['retries']}, "
+          f"failovers: {stats['failovers']}, mismatches: {mismatches}")
+    report = {
+        "n_workers": n_workers,
+        "requests": len(responses),
+        "wall_seconds": wall,
+        "mismatches": mismatches,
+        "cluster": stats,
+    }
+    print(json.dumps(report, default=str))
+    if mismatches:
+        raise SystemExit(f"{mismatches} responses diverged from engine.run")
+    return report
+
+
 def decode_serve_demo(
     n_seqs: int = 8,
     capacity: int = 8,
@@ -298,8 +366,17 @@ def main(argv=None) -> None:
     ap.add_argument("--serve-nodelets", type=int, default=4)
     ap.add_argument("--serve-slo-ms", type=float, default=5000.0,
                     help="per-request SLO target in ms for --decode-serve")
+    ap.add_argument("--cluster", type=int, default=0, metavar="N",
+                    help="serve the mixed-op stream on an N-worker localhost cluster (worker "
+                         "processes), every response held against engine.run")
+    ap.add_argument("--cluster-kill-one", action="store_true",
+                    help="with --cluster: SIGKILL one worker mid-stream to show failover")
     args = ap.parse_args(argv)
 
+    if args.cluster:
+        cluster_demo(args.cluster, n_requests=args.ops_requests, kill_one=args.cluster_kill_one,
+                     device=args.device)
+        return
     if args.decode_serve:
         workers = args.ops_workers if args.ops_workers == "auto" else int(args.ops_workers)
         report = decode_serve_demo(

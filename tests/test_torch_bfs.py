@@ -216,3 +216,18 @@ def test_validate_parents_agrees_with_reference(name):
         assert T.validate_parents(port_in.g, port_in.root, torch.as_tensor(cand)) == want
         verdicts.append(want)
     assert verdicts[0] and not verdicts[1] and not verdicts[2]
+
+
+def test_metrics():
+    assert T.teps(100, 2.0) == 50.0
+    assert T.bfs_effective_bandwidth(10, 1.0) == 16 * 1024 * 16
+
+
+@pytest.mark.parametrize("scale,edge_factor,seconds", [
+    (5, 2, 1e-3), (10, 16, 1.0), (20, 16, 6.11e-4), (26, 8, 3.5), (12, 16, 0.0),
+])
+def test_bfs_effective_bandwidth_matches_reference(scale, edge_factor, seconds):
+    """Paper §5.2's BW at a few scales, edge factors and times (0 s too:
+    both clamp the time), equal to the reference's."""
+    assert T.bfs_effective_bandwidth(scale, seconds, edge_factor) == R.bfs_effective_bandwidth(
+        scale, seconds, edge_factor)

@@ -321,13 +321,9 @@ def test_engine_cuda_matches_local_on_the_card(cuda):
     assert rep.metrics["recall_at_k"] > 0.9
 
 
-def test_service_pool_on_the_card_equals_run(cuda):
-    """The mixed stream (SpMV S1 on/off, BFS both comms, GSANA HCB/BLK)
-    served by a two-worker pool on the card, each worker on a stream of its
-    own, equals sequential run bit for bit; every kernel launched through
-    the service."""
-    from repro_torch.engine import EngineService, PlanCache
-
+def _card_signatures(cuda) -> list:
+    """The six main-path signatures at a small size on ``cuda``: SpMV S1
+    on/off, BFS both comms, GSANA HCB/BLK PAIR."""
     a = TS.laplacian_2d(64, device=cuda)
     x = torch.randn(a.n_cols, generator=torch.Generator().manual_seed(2)).to(cuda)
     spmv_in = SpMVInputs(T.partition_ell(a, 8, device=cuda), x)
@@ -342,6 +338,17 @@ def test_service_pool_on_the_card_equals_run(cuda):
     sigs += [("bfs", BFSInputs(g, 0), T.MigratoryStrategy(comm=c)) for c in T.Comm]
     sigs += [("gsana", gi, T.MigratoryStrategy(layout=lay, scheme=T.Scheme.PAIR))
              for lay in (T.Layout.HCB, T.Layout.BLK)]
+    return sigs
+
+
+def test_service_pool_on_the_card_equals_run(cuda):
+    """The mixed stream (SpMV S1 on/off, BFS both comms, GSANA HCB/BLK)
+    served by a two-worker pool on the card, each worker on a stream of its
+    own, equals sequential run bit for bit; every kernel launched through
+    the service."""
+    from repro_torch.engine import EngineService, PlanCache
+
+    sigs = _card_signatures(cuda)
     sub = CudaSubstrate(cuda)
     want = [run(Request(op, inp, st, sub), iters=1, warmup=0)[0] for op, inp, st in sigs]
     counts = {k: k.launches for k in (spmv_ell, bfs_expand, topk_sim)}
@@ -359,6 +366,37 @@ def test_service_pool_on_the_card_equals_run(cuda):
             assert torch.equal(result, want[i])
     assert all(k.launches > n for k, n in counts.items())
     assert svc.stats().errors == 0 and svc.stats().workers == 2
+
+
+def test_cluster_of_two_workers_on_the_card_equals_run(cuda):
+    """Two worker processes, each with its own CUDA context on the card,
+    serve the six signatures bit-identically to ``engine.run`` on the cuda
+    substrate; the coordinator's inputs are host copies, results come back
+    as CPU tensors, and both workers launched the kernels."""
+    from repro_torch.cluster import ClusterSubstrate, launch_cluster
+    from repro_torch.engine import substrate as substrates
+    from repro_torch.engine.wire import to_device
+
+    try:
+        sigs = _card_signatures(cuda)
+        sub = CudaSubstrate(cuda)
+        want = [to_device(run(Request(op, inp, st, sub), iters=1, warmup=0)[0], "cpu")
+                for op, inp, st in sigs]
+        host = [(op, to_device(inp, "cpu"), st) for op, inp, st in sigs]
+        with launch_cluster(2, service_workers=1, activate=False, wait_timeout=300) as cluster:
+            futures = [(i % 6, cluster.submit(Request(*host[i % 6], CudaSubstrate("cpu"))))
+                       for i in range(24)]
+            got = [(i, f.result(timeout=300).result) for i, f in futures]
+            rows = [cluster.coordinator.worker_stats(w) for w in (0, 1)]
+        for i, result in got:
+            if isinstance(result, tuple):
+                assert all(torch.equal(r, w) for r, w in zip(result, want[i]))
+            else:
+                assert torch.equal(result, want[i])
+        for row in rows:
+            assert row["requests"] > 0 and sum(row["kernel_launches"].values()) > 0
+    finally:
+        substrates._REGISTRY.pop(ClusterSubstrate.name, None)
 
 
 @pytest.fixture

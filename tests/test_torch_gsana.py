@@ -236,3 +236,19 @@ def test_placement_and_plan_stats_identical(layout, scheme):
     assert astuple(ps.traffic) == astuple(ps_ref.traffic)
     assert T.gsana_rw_bytes(port.vs1, port.vs2, port.b1, port.b2) == R.gsana_rw_bytes(
         ref.vs1, ref.vs2, ref.b1, ref.b2)
+
+
+def test_effective_bw_positive():
+    _, port = problem("n256")
+    assert T.gsana_effective_bw(port.vs1, port.vs2, port.b1, port.b2, seconds=1.0) > 0
+
+
+@pytest.mark.parametrize("seconds,word_bytes", [(1.0, 8), (5.9e-3, 8), (0.25, 4)])
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_gsana_effective_bw_matches_reference(name, seconds, word_bytes):
+    """Paper §5.3's RW-model bandwidth equal to the reference's on the same
+    numpy-built pair, at a few times and word sizes."""
+    ref, port = problem(name)
+    assert T.gsana_effective_bw(port.vs1, port.vs2, port.b1, port.b2, seconds,
+                                word_bytes) == R.gsana_effective_bw(
+        ref.vs1, ref.vs2, ref.b1, ref.b2, seconds, word_bytes)

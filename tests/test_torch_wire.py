@@ -31,7 +31,7 @@ from repro_torch.engine import (
     encode_value, run,
 )
 from repro_torch.engine.service import _content_hash
-from repro_torch.engine.wire import to_device
+from repro_torch.engine.wire import array_nbytes, host_array, to_device
 from torch_serving_inputs import CPU, assert_equal_results, bfs_pair, gsana_pair, signatures, spmv_pair
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -357,9 +357,10 @@ def test_blob_sink_emits_blobref_and_resolver_decodes():
     big, small = torch.arange(64, dtype=torch.float32), torch.ones(2)
     store = {}
 
-    def sink(original, arr):
-        if arr.nbytes < 64:
+    def sink(original):
+        if array_nbytes(original) < 64:
             return None
+        arr, _ = host_array(original)
         digest = content_digest(arr)
         store[digest] = torch.from_numpy(arr.copy())
         return digest
@@ -379,7 +380,7 @@ def test_canonical_bytes_ignore_transport_encoding():
     value = spmv_pair()[1]
     baseline = canonical_bytes(value)
     encode_value(value, segments=SegmentTable())
-    encode_value(value, blob_sink=lambda o, arr: content_digest(arr))
+    encode_value(value, blob_sink=content_digest)
     assert canonical_bytes(value) == baseline
     table = SegmentTable()
     encoded = _attach(json.loads(json.dumps(encode_value(value, segments=table))), table.segments)
@@ -390,9 +391,10 @@ def test_request_to_wire_threads_segments_and_blobs():
     request = Request("gsana", gsana_pair()[1], T.MigratoryStrategy(), LocalSubstrate(CPU))
     blobs = {}
 
-    def sink(original, arr):
-        if arr.nbytes < 4096:
+    def sink(original):
+        if array_nbytes(original) < 4096:
             return None
+        arr, _ = host_array(original)
         digest = content_digest(arr)
         blobs[digest] = torch.from_numpy(arr.copy())
         return digest
