@@ -51,6 +51,19 @@ result, without them or outside a checkout of the repository. In order:
    "cluster")`` forwarding the kernels, and a SIGKILL mid-burst whose
    futures all terminate with equal results. The workers stop before the LM
    phases;
+3c. runs the main path on the ``mesh`` substrate (phase "mesh substrate"):
+   8 rank processes on the card joined by a gloo group (one card: every
+   collective through pinned host memory), the six signatures through
+   ``engine.run`` on the same full-size inputs, each equal to ``local`` (SpMV
+   and BFS bit for bit) and printed beside its ``cuda`` and ``local``
+   seconds with the call split into the ranks' compute, their collectives
+   and the caller's overhead (``mesh_row`` lines); ``moe_dispatch`` at the
+   moonshot layer width in ep_push, ep_pull (8 ranks) and tp (1), equal to
+   ``local``; ``DecodeServer`` for serve-moe through
+   ``EngineService(substrate="mesh")`` at 4 ranks, tokens equal to the
+   ``local`` run's; the collectives' alpha-beta fits; every mesh closed,
+   even after a failure, before the LM phases, with no rank process left,
+   every rank's exit code 0 and no CUDA IPC counter still held;
 4. autotunes on the card (phase "autotune + calibration (cuda)"): ranks
    SpMV and BFS (probes of the top 3) and GSANA (a probe of the top 1) on
    the same inputs with the uncalibrated profile, runs ``strategy="auto"``
@@ -145,6 +158,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -237,6 +251,9 @@ MOE_DISPATCH_LAYER = 24
 # float32 as the configs give them; sequences, new tokens each, batch slots
 DECODE_CONFIGS = (("serve-moe", 4), ("moonshot-v1-16b-a3b", 8))
 DECODE_SEQS, DECODE_NEW, DECODE_CAPACITY = 8, 8, 8
+# the mesh phase: the main path's nodelets as rank processes, and the
+# DecodeServer's expert-parallel width there (serve-moe's 8 experts over 4)
+MESH_RANKS, MESH_DECODE_RANKS = 8, 4
 # training at full width: batch x sequence (8,192 tokens a step), AdamW, the
 # steps of llama3.2-3b and of moonshot-v1-16b-a3b cut to 2 of its 48 layers
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -346,6 +363,8 @@ def main() -> int:
     if serving is not None:
         smoke.phase("cluster plane (worker processes on the card)", cluster_path, smoke, inputs,
                     serving)
+    smoke.phase(f"mesh substrate (P = {MESH_RANKS} rank processes on the card)", mesh_path, smoke,
+                inputs)
     smoke.phase("CSR-stripe SpMV through spmv(variant='stripe'), timed", stripe_path, smoke,
                 inputs)
     smoke.phase(f"GSANA at a coarse grid (pick_grid(n, {COARSE_BUCKET})) through engine.run, "
@@ -948,6 +967,189 @@ def cluster_path(smoke: Smoke, inputs: dict, serving: dict) -> None:
             os.environ["REPRO_BLOB_BUDGET_BYTES"] = old_budget
     print("  serving phase beside it (threads in one process): " + json.dumps(serving["service"]),
           flush=True)
+
+
+def mesh_path(smoke: Smoke, inputs: dict) -> None:
+    """The ``mesh`` substrate on the card (phase "mesh substrate"): a
+    nodelet mesh of :data:`MESH_RANKS` rank processes (one card, so gloo,
+    every collective staged through pinned host memory; a ``mesh {...}``
+    line with the backend, launch to ready and card memory a rank), the six
+    main-path signatures through ``engine.run(..., "mesh")`` on the
+    main path's full-size inputs, each beside the same signature's ``cuda``
+    and ``local`` seconds and split into the ranks' compute, their
+    collectives and the caller's overhead, each result equal to ``local``
+    on the card (SpMV and BFS bit for bit, GSANA candidates and scores);
+    ``moe_dispatch`` at the moonshot layer width (x (8192, 2048) bf16,
+    router (2048, 64) float32 from numpy seed 3, 64 experts top-6, random
+    bf16 expert weights from seed 0) in ep_push and ep_pull at 8 ranks and tp
+    at 1, each equal to ``local``; ``DecodeServer`` for serve-moe through
+    ``EngineService(substrate="mesh")`` at :data:`MESH_DECODE_RANKS` ranks,
+    tokens equal to the ``local`` run's; ``measure_collectives`` over the
+    8-rank mesh; then every mesh closed and no rank process left."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import (
+        CudaSubstrate, DecodeServer, EngineService, LocalSubstrate, MeshSubstrate,
+        MoEDispatchInputs, PlanCache, Request, run,
+    )
+    from repro_torch.launch.mesh import close_meshes, make_nodelet_mesh
+    from repro_torch.machine.microbench import COLLECTIVE_SIZES, measure_collectives
+    from repro_torch.models.transformer import moe_decode_params
+
+    dev = inputs["spmv"].x.device
+    cache = PlanCache()
+    meshes = []
+    try:
+        free_before, _ = torch.cuda.mem_get_info(dev)
+        mesh = make_nodelet_mesh(MESH_RANKS, dev)
+        meshes.append(mesh)
+        free_after, _ = torch.cuda.mem_get_info(dev)
+        reserved = [r.get("reserved_bytes", 0) for r in mesh.memory()]
+        print(f"  mesh: {mesh.describe()}", flush=True)
+        print("  mesh " + json.dumps({
+            "ranks": mesh.p, "backend": mesh.backend, "staged_through_host": list(mesh.staged),
+            "launch_to_ready_s": mesh.ready_seconds,
+            "card_used_per_rank_gib": (free_before - free_after) / mesh.p / 2**30,
+            "reserved_per_rank_gib": [b / 2**30 for b in reserved],
+            "nvidia_smi_mib_by_pid": {str(pid): mib for pid, mib in app_memory_mib().items()
+                                      if pid in mesh.pids},
+        }), flush=True)
+        mesh_sub = MeshSubstrate(dev)
+        smoke.check(mesh_sub.mesh_for(MESH_RANKS) is mesh, "MeshSubstrate did not resolve the mesh")
+        for op, inp, st in serve_signatures(inputs):
+            got, rep = run(Request(op, inp, st, "mesh"), cache=cache)  # by name, as users ask
+            split = dict(mesh.last_call)
+            want, rep_local = run(Request(op, inp, st, LocalSubstrate(dev)), cache=cache)
+            _, rep_cuda = run(Request(op, inp, st, CudaSubstrate(dev)), cache=cache)
+            print("report " + rep.to_json(), flush=True)
+            compute = [b - c for b, c in zip(split["body_s"], split["coll_s"])]
+            row = {"op": op, "strategy": st.cache_key(), "mesh_ms": rep.seconds * 1e3,
+                   "cuda_ms": rep_cuda.seconds * 1e3, "local_ms": rep_local.seconds * 1e3,
+                   "mesh_over_cuda": rep.seconds / rep_cuda.seconds,
+                   "first_call_ms": rep.compile_seconds * 1e3,
+                   "call_ms": split["call_s"] * 1e3, "ship_ms": split["ship_s"] * 1e3,
+                   "rank_recv_ms": max(split["recv_s"]) * 1e3, "reply_ms": split["reply_s"] * 1e3,
+                   "rank_compute_ms": max(compute) * 1e3, "rank_collectives_ms": max(split["coll_s"]) * 1e3,
+                   "collective_calls": split["coll_calls"], "caller_overhead_ms": split["overhead_s"] * 1e3,
+                   "collective_share": max(split["coll_s"]) / split["call_s"]}
+            print("  mesh_row " + json.dumps(row), flush=True)
+            smoke.check(same_result(got, want), f"mesh {op} {st.cache_key()}: differs from local")
+            smoke.check(rep.traffic == rep_local.traffic, f"mesh {op}: traffic differs from local")
+
+        cfg = get_config(MOE_ARCH)
+        k, cf = cfg.experts_per_token, cfg.capacity_factor
+        rng = np.random.default_rng(3)
+        x = torch.as_tensor(rng.standard_normal((LM_BATCH * LM_PROMPT, cfg.d_model), dtype=np.float32),
+                            device=dev).to(torch.bfloat16)
+        router = torch.as_tensor(0.02 * rng.standard_normal((cfg.d_model, cfg.num_experts),
+                                                            dtype=np.float32), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        f = cfg.moe_d_ff or cfg.d_ff
+        w_gate, w_up = (0.02 * torch.randn((cfg.num_experts, cfg.d_model, f), generator=gen, device=dev,
+                                           dtype=torch.bfloat16) for _ in range(2))
+        w_down = 0.02 * torch.randn((cfg.num_experts, f, cfg.d_model), generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
+        for label, st, nodelets in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE), MESH_RANKS),
+                                    ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE), MESH_RANKS),
+                                    ("tp", MigratoryStrategy(), 1)):
+            moe_in = MoEDispatchInputs(x, router, nodelets=nodelets, experts_per_token=k,
+                                       capacity_factor=cf, w_gate=w_gate, w_up=w_up, w_down=w_down)
+            got, rep = run(Request("moe_dispatch", moe_in, st, mesh_sub), cache=cache)
+            m = mesh_sub.mesh_for(nodelets)
+            if m not in meshes:
+                meshes.append(m)
+            split = dict(m.last_call)
+            want, rep_local = run(Request("moe_dispatch", moe_in, st, LocalSubstrate(dev)), cache=cache)
+            print("report " + rep.to_json(), flush=True)
+            print("  mesh_moe " + json.dumps({
+                "mode": rep.metrics["dispatch_mode"], "ranks": nodelets, "mesh_ms": rep.seconds * 1e3,
+                "local_ms": rep_local.seconds * 1e3, "ship_ms": split["ship_s"] * 1e3,
+                "rank_recv_ms": max(split["recv_s"]) * 1e3, "reply_ms": split["reply_s"] * 1e3,
+                "rank_compute_ms": max(b - c for b, c in zip(split["body_s"], split["coll_s"])) * 1e3,
+                "rank_collectives_ms": max(split["coll_s"]) * 1e3,
+                "caller_overhead_ms": split["overhead_s"] * 1e3,
+                "dropped_slots": rep.metrics["dropped_slots"]}), flush=True)
+            smoke.check(rep.metrics["dispatch_mode"] == label, f"mesh moe_dispatch: mode {rep.metrics}")
+            smoke.check(torch.equal(got, want), f"mesh moe_dispatch {label}: differs from local")
+        del x, router, w_gate, w_up, w_down, moe_in, got, want
+
+        cfg = get_config("serve-moe")
+        params = moe_decode_params(cfg, seed=0, device=dev)
+        prng = np.random.default_rng(0)
+        prompts = [prng.integers(1, cfg.vocab_size, size=int(prng.integers(2, 6))).tolist()
+                   for _ in range(DECODE_SEQS)]
+
+        def drive(server):
+            for i, prompt in enumerate(prompts):
+                server.add(prompt, max_new_tokens=DECODE_NEW)
+                if i % 2:
+                    server.step()
+            return dict(server.run_until_drained())
+
+        decode_mesh = make_nodelet_mesh(MESH_DECODE_RANKS, dev)  # started before the rates are read
+        meshes.append(decode_mesh)
+        print(f"  mesh for DecodeServer: {decode_mesh.describe()}", flush=True)
+        for label, st in (("ep_push", MigratoryStrategy(comm=Comm.REMOTE_WRITE)),
+                          ("ep_pull", MigratoryStrategy(comm=Comm.MIGRATE))):
+            mk = dict(capacity=DECODE_CAPACITY, max_len=32, nodelets=MESH_DECODE_RANKS, strategy=st,
+                      device=dev)
+            local = drive(DecodeServer(cfg, params, substrate=LocalSubstrate(dev), **mk))
+            svc = EngineService(cache=PlanCache(), substrate="mesh", device=dev, workers=1,
+                                slo_target_seconds=5.0).start()
+            try:
+                served = drive(DecodeServer(cfg, params, service=svc, substrate="mesh", **mk))
+            finally:
+                svc.stop()
+            report = svc.throughput_report()
+            smoke.check(MeshSubstrate(dev).mesh_for(MESH_DECODE_RANKS) is decode_mesh,
+                        "DecodeServer's mesh is not the one started for it")
+            print("  mesh_decode " + json.dumps({
+                "config": cfg.name, "mode": label, "ranks": MESH_DECODE_RANKS,
+                "steps_per_s": report["requests_per_second"],
+                "total_p50_ms": report["total_p50"] * 1e3, "total_p99_ms": report["total_p99"] * 1e3,
+                "parity": served == local}), flush=True)
+            smoke.check(served == local, f"mesh DecodeServer {label}: tokens differ from local")
+
+        sizes = COLLECTIVE_SIZES["cuda"]["quick"]
+        fits = measure_collectives(sizes, mesh=mesh)
+        for kind, ab in fits.items():
+            print(f"  mesh collective {kind}: alpha {ab.alpha * 1e6:.1f} us, beta {ab.beta * 1e12:.2f} "
+                  f"ps/byte ({1.0 / max(ab.beta, 1e-18) / 1e9:.2f} GB/s), sizes {list(sizes)} bytes",
+                  flush=True)
+            smoke.check(ab.alpha >= 0 and ab.beta > 0, f"mesh collective {kind}: {ab}")
+    finally:  # a failed check or a rank error still stops every rank before the LM phases
+        pids = [pid for m in meshes for pid in m.pids]
+        close_meshes()
+        left = [p.pid for p in mp.active_children() if p.name.startswith("nodelet-rank")]
+        exits = [code for m in meshes for code in m.exit_codes]
+        print(f"  mesh closed: {len(pids)} rank processes stopped (exit codes {sorted(set(exits))}), "
+              f"{len(left)} left", flush=True)
+    files, slots, held = ipc_shares_outstanding()
+    print(f"  mesh IPC after close: {held} of {slots} ref-counter slots held by a rank "
+          f"({files} counter file(s) of this process)", flush=True)
+    smoke.check(not left, f"rank processes left after close: {left}")
+    smoke.check(all(code == 0 for code in exits), f"a rank did not exit cleanly: {exits}")
+    smoke.check(held == 0, f"{held} CUDA blocks shipped to the ranks are still held")
+    smoke.check(all(m.closed and not any(m.alive()) for m in meshes), "a mesh is still open")
+
+
+def ipc_shares_outstanding() -> tuple[int, int, int]:
+    """This process's CUDA IPC reference counters, read from the shared
+    files torch keeps them in (``/dev/shm/torch_<pid>_*``: a 64-byte header,
+    then one uint64 a shipped storage, set to 1 when shipped and dropped to 0
+    when the receiving process frees its view): the files, their slots, and
+    the slots still nonzero (blocks a rank still holds)."""
+    import glob
+
+    files = glob.glob(f"/dev/shm/torch_{os.getpid()}_*")
+    slots = held = 0
+    for path in files:
+        counters = np.fromfile(path, dtype=np.uint64)[8:]
+        slots += counters.size
+        held += int(np.count_nonzero(counters))
+    return len(files), slots, held
 
 
 def dataclass_tensors(value) -> list:

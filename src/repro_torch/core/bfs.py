@@ -10,7 +10,8 @@ parent is a valid BFS parent).
 
 Both strategies produce identical parent trees (level-synchronous
 min-merge); they differ in communication structure, which the numpy traffic
-replay (:func:`bfs_traffic`) accounts for.
+replay (:func:`bfs_traffic`) accounts for and the ``mesh`` substrate
+(:func:`bfs_mesh`) runs for real between rank processes.
 """
 from __future__ import annotations
 
@@ -99,6 +100,82 @@ def bfs_local(
     max_rounds = max_rounds or g.P * g.v_per_nodelet
     expand = lambda a, f: _expand_dense(a, f, a.shape[0])  # noqa: E731
     return _finalize_parents(g, bfs_rounds(adj, root, max_rounds, expand))
+
+
+def _bfs_rank(rank, world, group, adj_s, *, root: int, push: bool, max_rounds: int):
+    """A mesh rank's BFS over its block of the vertex-major order (vertex v
+    on rank v // vs, slot v % vs); returns its (vs,) slice of the parents.
+
+    remote_write (Alg. 2, push): a dense proposal partial for the whole
+    vertex space from local state only, pushed with an ``all_to_all`` of
+    its P blocks and a local min (a reduce-scatter(min)). migrate (Alg. 1,
+    pull): ``all_gather`` the parents (the remote read of P[d]), keep
+    unvisited destinations, then ``all_gather`` every rank's partial, min,
+    and take this rank's slice. Each round ends with an ``all_reduce`` of
+    the newly visited count: the loop goes on while any rank has some."""
+    vs, k = adj_s.shape
+    n_pad = world * vs
+    lo = rank * vs
+    vids = lo + torch.arange(vs, dtype=torch.int32, device=adj_s.device)
+    src = vids[:, None].expand(vs, k)
+    parents = torch.where(vids == root, vids, UNVISITED)
+    frontier = vids == root
+    in_range = (adj_s >= 0) & (adj_s < n_pad)
+    for _ in range(max_rounds):
+        valid = frontier[:, None] & in_range
+        dst = torch.where(valid, adj_s, 0).long()
+        if not push:
+            par_full = group.all_gather(parents)
+            valid = valid & (par_full[dst] == UNVISITED)
+        prop = torch.where(valid, src, UNVISITED).reshape(-1)
+        partial = torch.full((n_pad,), UNVISITED, dtype=torch.int32, device=adj_s.device)
+        partial.scatter_reduce_(0, dst.reshape(-1), prop, "amin")
+        if push:
+            nP = group.all_to_all(partial).view(world, vs).amin(0)
+        else:
+            nP = group.all_gather(partial).view(world, n_pad).amin(0)[lo:lo + vs]
+        newly = (parents == UNVISITED) & (nP != UNVISITED)
+        parents = torch.where(newly, nP, parents)
+        frontier = newly
+        if int(group.all_reduce(newly.sum().reshape(1))) == 0:
+            break
+    return parents
+
+
+def bfs_mesh(
+    g: PartitionedGraph,
+    root: int,
+    strategy: MigratoryStrategy | None = None,
+    max_rounds: int | None = None,
+    *,
+    mesh,
+) -> torch.Tensor:
+    """``mesh`` substrate: the strategy's distributed BFS over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.NodeletMesh` of ``g.P`` ranks), each
+    rank holding a block of the vertex-major adjacency rows (not the
+    nodelet-major partition). Same tree as :func:`bfs_local`."""
+    strategy = strategy or MigratoryStrategy()
+    max_rounds = max_rounds or g.P * g.v_per_nodelet
+    parents = mesh.run(_bfs_rank, sharded=(_adj_global(g),), root=int(root),
+                       push=strategy.comm == Comm.REMOTE_WRITE, max_rounds=max_rounds)
+    return _finalize_parents(g, torch.cat(parents))
+
+
+def bfs(
+    g: PartitionedGraph,
+    root: int,
+    strategy: MigratoryStrategy | None = None,
+    *,
+    mesh=None,
+    max_rounds: int | None = None,
+) -> torch.Tensor:
+    """Dispatch shim: the ``local`` substrate without a mesh, the ``mesh``
+    substrate over ``mesh`` with one (on the graph's device)."""
+    from ..engine.substrate import substrate_for_mesh
+
+    return substrate_for_mesh(mesh, g.adj.device).kernel("bfs")(
+        g, root, strategy=strategy or MigratoryStrategy(), max_rounds=max_rounds
+    )
 
 
 # -- paper-model traffic accounting (numpy simulator) -------------------------

@@ -217,6 +217,60 @@ def compute_similarity(
     return _scatter_vertex_major(cand_b, score_b, b2, vs2.n, k)
 
 
+def _gsana_all_rank(rank, world, group, ids, vs1, vs2, b1, b2, nb, *, k):
+    """A mesh rank's slice of the ALL task list: QT2 buckets ``ids``."""
+    u_idx = _neighbor_u_ids(b1, nb[ids]).reshape(ids.shape[0], 9 * b1.cap)
+    return _task_topk(vs1, vs2, b2.vid[ids], u_idx, k)
+
+
+def _gsana_pair_rank(rank, world, group, pair_b2, pair_b1, vs1, vs2, b1, b2, *, kk):
+    """A mesh rank's slice of the PAIR task list: (QT2 bucket, QT1 bucket)."""
+    return _task_topk(vs1, vs2, b2.vid[pair_b2], _neighbor_u_ids(b1, pair_b1), kk)
+
+
+def _pad_tasks(t: torch.Tensor, p: int, fill: torch.Tensor) -> torch.Tensor:
+    """``t`` padded to a multiple of ``p`` entries with ``fill``."""
+    pad = -t.shape[0] % p
+    return torch.cat([t, fill.expand(pad)]) if pad else t
+
+
+def compute_similarity_mesh(
+    vs1: VertexSet, vs2: VertexSet, b1: Buckets, b2: Buckets, k: int = 4,
+    scheme: Scheme = Scheme.PAIR, *, mesh,
+):
+    """``mesh`` substrate: the same task set over the ranks of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.NodeletMesh`).
+
+    Bucket metadata is replicated (the shared QT plane); each rank runs its
+    slice of the task list, padded to a multiple of the rank count (ALL with
+    repeats of the last bucket, PAIR with repeats of task 0) and sliced off
+    afterwards: compute moves to tasks, which is why the scheme and layout
+    show up in the traffic model, not in collectives. Results equal the
+    local substrate's."""
+    grid2 = b2.grid * b2.grid
+    dev = b2.vid.device
+    if scheme == Scheme.ALL:
+        nb = torch.as_tensor(neighbor_buckets(b2.grid), device=dev)
+        ids = torch.arange(grid2, device=dev)
+        outs = mesh.run(_gsana_all_rank, sharded=(_pad_tasks(ids, mesh.p, ids[-1]),),
+                        replicated=(vs1, vs2, b1, b2, nb), k=k)
+        cand_b = torch.cat([c for c, _ in outs])[:grid2]
+        score_b = torch.cat([sc for _, sc in outs])[:grid2]
+    else:
+        pair_b2, pair_b1 = pair_tasks(b2.grid, dev)
+        n_pairs = pair_b2.shape[0]
+        outs = mesh.run(
+            _gsana_pair_rank,
+            sharded=(_pad_tasks(pair_b2, mesh.p, pair_b2[0]),
+                     _pad_tasks(pair_b1, mesh.p, pair_b1[0])),
+            replicated=(vs1, vs2, b1, b2), kk=min(k, b1.cap),
+        )
+        cands = torch.cat([c for c, _ in outs])[:n_pairs]
+        scores = torch.cat([sc for _, sc in outs])[:n_pairs]
+        cand_b, score_b = _merge_pair_topk(cands, scores, grid2, k)
+    return _scatter_vertex_major(cand_b, score_b, b2, vs2.n, k)
+
+
 def recall_at_k(cand, pi: np.ndarray) -> float:
     """Fraction of v ∈ V2 whose ground-truth partner is among its candidates."""
     pi = to_numpy(pi) if isinstance(pi, torch.Tensor) else np.asarray(pi)

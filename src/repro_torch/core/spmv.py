@@ -12,7 +12,8 @@ either
 
 ``grain`` = rows per task (paper Fig. 4): the local path executes row chunks
 of ``grain`` rows in a loop (sequential across chunks, vector within), and
-the CUDA kernel uses it as rows per block.
+the CUDA kernel uses it as rows per block, and a mesh rank runs its own
+plane in the same chunks.
 """
 from __future__ import annotations
 
@@ -94,18 +95,59 @@ def _rows_kernel(cols, vals, x_full):
     return torch.where(mask, vals * xg, torch.zeros_like(vals)).sum(dim=-1)
 
 
+def _planes_in_chunks(cols, vals, x_full, grain: int) -> torch.Tensor:
+    """(P', R_p, K) planes -> (P', R_p): row chunks of ``grain`` rows in
+    turn, every plane at once. The local path runs all P planes, a mesh
+    rank its own, so both reduce each row alike."""
+    rp = cols.shape[1]
+    y = torch.empty(cols.shape[:2], dtype=vals.dtype, device=vals.device)
+    for lo in range(0, rp, grain):
+        y[:, lo:lo + grain] = _rows_kernel(cols[:, lo:lo + grain], vals[:, lo:lo + grain], x_full)
+    return y
+
+
+def _grain(a: PartitionedELL, strategy: MigratoryStrategy) -> int:
+    rp = a.rows_per_nodelet
+    return max(1, min(strategy.dynamic_grain(rp), rp))
+
+
 def spmv_local(a: PartitionedELL, x: torch.Tensor, strategy: MigratoryStrategy) -> torch.Tensor:
     """``local`` substrate: plain torch with the distributed path's
     semantics, all nodelets at once, row chunks of ``grain`` rows in turn.
     ``x``: full (N,) if ``strategy.replicate_x`` else striped (P, N_p).
     Returns y in striped (P, R_p) layout."""
-    rp = a.rows_per_nodelet
-    g = max(1, min(strategy.dynamic_grain(rp), rp))
     x_full = x if strategy.replicate_x else unstripe_vector(x, a.shape[1])
-    y = torch.empty(a.cols.shape[:2], dtype=a.vals.dtype, device=a.vals.device)
-    for lo in range(0, rp, g):
-        y[:, lo:lo + g] = _rows_kernel(a.cols[:, lo:lo + g], a.vals[:, lo:lo + g], x_full)
-    return y
+    return _planes_in_chunks(a.cols, a.vals, x_full, _grain(a, strategy))
+
+
+def _spmv_rank(rank, world, group, cols_p, vals_p, x, *, n: int, replicate_x: bool, grain: int):
+    """A mesh rank's SpMV on its (1, R_p, K) planes. With x replicated: pure
+    local compute (the paper's S1 win); striped: ``all_gather`` the rank's
+    (1, N_p) stripe of x first (the migrate pull)."""
+    x_full = x if replicate_x else unstripe_vector(group.all_gather(x), n)
+    return _planes_in_chunks(cols_p, vals_p, x_full, grain)
+
+
+def spmv_mesh(a: PartitionedELL, x: torch.Tensor, strategy: MigratoryStrategy,
+              mesh) -> torch.Tensor:
+    """``mesh`` substrate: nodelet plane ``r`` on rank ``r`` of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.NodeletMesh` of ``a.P`` ranks). Same
+    input and output conventions as :func:`spmv_local`."""
+    if strategy.replicate_x:
+        sharded, replicated = (a.cols, a.vals), (x,)
+    else:  # the striped (P, N_p) x: stripe r on rank r
+        sharded, replicated = (a.cols, a.vals, x), ()
+    ys = mesh.run(_spmv_rank, sharded=sharded, replicated=replicated, n=a.shape[1],
+                  replicate_x=strategy.replicate_x, grain=_grain(a, strategy))
+    return torch.cat(ys)
+
+
+def spmv(a: PartitionedELL, x: torch.Tensor, strategy: MigratoryStrategy, *, mesh=None):
+    """Dispatch shim: the ``local`` substrate without a mesh, the ``mesh``
+    substrate over ``mesh`` with one (on the inputs' device)."""
+    from ..engine.substrate import substrate_for_mesh
+
+    return substrate_for_mesh(mesh, a.cols.device).kernel("spmv")(a, x, strategy=strategy)
 
 
 def gather_result(y_striped: torch.Tensor, n: int) -> torch.Tensor:

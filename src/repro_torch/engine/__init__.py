@@ -82,10 +82,12 @@ from .service import (
 from .substrate import (
     CudaSubstrate,
     LocalSubstrate,
+    MeshSubstrate,
     Substrate,
     get_substrate,
     list_substrates,
     register_substrate,
+    substrate_for_mesh,
 )
 from .wire import (
     WIRE_VERSION,
@@ -102,7 +104,8 @@ __all__ = [
     "AdmissionError", "AutotuneResult", "BFSInputs", "BFSOp", "CUDA_BLOCK_CANDIDATES",
     "CompiledPlan", "CudaSubstrate", "DecodeServer", "EngineService", "ExecutionPlan",
     "GRAIN_CANDIDATES", "GSANAInputs", "GSANAOp", "KernelRegistry", "LocalSubstrate",
-    "MigratoryOp", "MoEDecodeInputs", "MoEDecodeOp", "MoEDispatchInputs", "MoEDispatchOp",
+    "MeshSubstrate", "MigratoryOp", "MoEDecodeInputs", "MoEDecodeOp", "MoEDispatchInputs",
+    "MoEDispatchOp",
     "OpNotSupportedError", "OpSpec", "PlanCache", "ProbeStore", "RankedCandidate", "Request",
     "RunReport", "SegmentTable", "ServiceFuture", "ServiceRequest", "ServiceResponse",
     "ServiceStats", "ServiceStopped", "ServiceTimeout", "SpMVInputs", "SpMVOp", "Substrate",
@@ -114,5 +117,5 @@ __all__ = [
     "moe_dispatch_cost_model", "moe_dispatch_grid", "moe_dispatch_reference",
     "moe_dispatch_traffic", "placement_table", "plan_key", "rank_strategies", "register_op",
     "register_substrate", "resolve_op", "run", "run_plan", "run_request", "single_call",
-    "strategy_dict",
+    "strategy_dict", "substrate_for_mesh",
 ]

@@ -7,7 +7,8 @@ its own ``positions`` write cursor, so sequences at different depths share
 one step), then the MoE sublayer through the ``moe_dispatch`` machinery
 (routing, capacity binning, the S2 exchanges and the experts' SwiGLU), and
 the lm_head. The steps outside the dispatch are :func:`_decode_pre` and
-:func:`_decode_post`, the same functions in every route, so a served step is
+:func:`_decode_post`, the same functions in every route (on the mesh they
+run on the caller, the dispatch on the ranks), so a served step is
 bit-identical to :func:`moe_decode_reference` in all three dispatch modes.
 
 Params come from :func:`repro_torch.models.transformer.moe_decode_params`
@@ -15,10 +16,10 @@ for a :class:`~repro_torch.models.config.ModelConfig` (``serve-moe``). The
 op returns ``(logits (B, V), new_k (B, S, D), new_v (B, S, D))``: the
 caches are new tensors and the inputs stay as they were, so the caller (the
 :class:`~repro_torch.engine.decode.DecodeServer`) threads them back in on
-the next submit. Only a ``local`` kernel is registered (the JAX package's
-``pallas`` has none either): ``CudaSubstrate`` raises
+the next submit. A ``local`` and a ``mesh`` kernel are registered (the JAX
+package's ``pallas`` has none either): ``CudaSubstrate`` raises
 :class:`~repro_torch.engine.api.OpNotSupportedError`, and on the card the
-op runs on ``LocalSubstrate("cuda")``.
+op runs on ``LocalSubstrate("cuda")`` or ``MeshSubstrate("cuda")``.
 """
 from __future__ import annotations
 
@@ -33,9 +34,9 @@ from ..models.layers import rmsnorm
 from ..models.moe import dispatch_from_strategy
 from ..models.transformer import MOE_DECODE_PARAM_KEYS
 from .api import ExecutionPlan, plan_key
-from .moe_op import _dispatch_local, moe_dispatch_grid
+from .moe_op import _dispatch_local, _dispatch_mesh, moe_dispatch_grid
 from .registry import OpSpec, kernel, register_op
-from .substrate import Substrate
+from .substrate import MeshSubstrate, Substrate
 
 
 
@@ -98,18 +99,19 @@ def _decode_post(p, x, expert_out, *, norm_eps):
 
 
 @torch.inference_mode()
-def _decode_local(
+def _decode_step(
     params, tokens, k_cache, v_cache, positions, *,
-    mode, nodelets, experts_per_token, capacity_factor, norm_eps,
+    mode, nodelets, experts_per_token, capacity_factor, norm_eps, mesh=None,
 ):
+    """One step: the attention and the head here, the dispatch emulated
+    here too, or on ``mesh``'s ranks when given."""
     x, h2, k_cache, v_cache = _decode_pre(
         params, tokens, k_cache, v_cache, positions, norm_eps=norm_eps
     )
-    out = _dispatch_local(
-        h2, params["router"], params["w_gate"], params["w_up"], params["w_down"],
-        mode=mode, nodelets=nodelets, experts_per_token=experts_per_token,
-        capacity_factor=capacity_factor,
-    )
+    args = (h2, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+    kw = dict(mode=mode, nodelets=nodelets, experts_per_token=experts_per_token,
+              capacity_factor=capacity_factor)
+    out = _dispatch_local(*args, **kw) if mesh is None else _dispatch_mesh(*args, **kw, mesh=mesh)
     return _decode_post(params, x, out, norm_eps=norm_eps), k_cache, v_cache
 
 
@@ -124,10 +126,26 @@ def _moe_decode_local(
     mode = dispatch_from_strategy(
         strategy, num_experts=int(params["router"].shape[-1]), data_axis=nodelets
     )
-    return _decode_local(
+    return _decode_step(
         params, tokens, k_cache, v_cache, positions, mode=mode,
         nodelets=nodelets, experts_per_token=experts_per_token,
         capacity_factor=capacity_factor, norm_eps=norm_eps,
+    )
+
+
+@kernel("moe_decode", "mesh")
+def _moe_decode_mesh(
+    sub: MeshSubstrate, params, tokens, k_cache, v_cache, positions, *,
+    strategy, nodelets, experts_per_token, capacity_factor, norm_eps,
+):
+    mode = dispatch_from_strategy(
+        strategy, num_experts=int(params["router"].shape[-1]), data_axis=nodelets
+    )
+    return _decode_step(
+        params, tokens, k_cache, v_cache, positions, mode=mode,
+        nodelets=nodelets, experts_per_token=experts_per_token,
+        capacity_factor=capacity_factor, norm_eps=norm_eps,
+        mesh=sub.mesh_of_width(nodelets, "moe_decode"),
     )
 
 
@@ -137,7 +155,7 @@ def moe_decode_reference(
     """The single-process oracle: the decode math with the local dispatch,
     which every served decode step must bit-match."""
     strategy = strategy if strategy is not None else MigratoryStrategy()
-    return _decode_local(
+    return _decode_step(
         inputs.params, inputs.tokens, inputs.k_cache, inputs.v_cache,
         inputs.positions, mode=derive_decode_mode(inputs, strategy),
         nodelets=inputs.nodelets, experts_per_token=inputs.experts_per_token,

@@ -9,11 +9,12 @@ dispatch stays node-local. The mode derivation is
 :func:`repro_torch.models.moe.dispatch_from_strategy`, the mapping the LM
 stack uses, so the autotuner ranks real MoE deployment choices.
 
-The op registers a ``local`` kernel and an :class:`OpSpec` (with a
-collective-bytes cost model) without editing any substrate class. The
-``cuda`` substrate has no entry, as the JAX package's ``pallas`` has none,
-so :class:`~repro_torch.engine.api.OpNotSupportedError` falls out of the
-registry; on the card the op runs on ``LocalSubstrate("cuda")``.
+The op registers a ``local`` and a ``mesh`` kernel and an :class:`OpSpec`
+(with a collective-bytes cost model) without editing any substrate class.
+The ``cuda`` substrate has no entry, as the JAX package's ``pallas`` has
+none, so :class:`~repro_torch.engine.api.OpNotSupportedError` falls out of
+the registry; on the card the op runs on ``LocalSubstrate("cuda")`` or
+``MeshSubstrate("cuda")``.
 
 The op executes the dispatch transport (routing, capacity binning, the
 exchanges, the gate-weighted combine) and, when the inputs carry expert
@@ -24,7 +25,12 @@ capacity buffers. Without weights the experts are identity.
 
 The local kernel emulates the P nodelets in one process: a loop over the
 shards, each running the per-shard pieces below, with every all_to_all a
-transpose of the (P_src, P_dst) axes of the stacked send buffers.
+transpose of the (P_src, P_dst) axes of the stacked send buffers. The mesh
+kernel runs the same pieces in P rank processes
+(:mod:`repro_torch.launch.mesh`) with the exchanges as real collectives:
+``all_to_all`` there and back for ep_push; ``all_gather`` of the tokens and
+their expert ids, then an ``all_reduce`` sum for ep_pull (exact: each slot
+has at most one owner adding a non-zero, the rest add ``+0.0``).
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from ..models.moe import (
 )
 from .api import ExecutionPlan, plan_key
 from .registry import OpSpec, kernel, register_op
-from .substrate import Substrate
+from .substrate import MeshSubstrate, Substrate
 
 _FFN_NAMES = ("w_gate", "w_up", "w_down")
 
@@ -258,6 +264,76 @@ def _moe_dispatch_local(
     return _dispatch_local(
         x, router, *ws, mode=mode, nodelets=nodelets, experts_per_token=experts_per_token,
         capacity_factor=capacity_factor,
+    )
+
+
+# -- mesh kernel: the same per-shard pieces in rank processes -----------------------
+
+
+def _tp_rank(rank, world, group, x_s, router, *ws, k, num_experts, cap):
+    """tp on a rank: its token stripe against the whole (replicated) expert set."""
+    return _tp_shard(x_s, router, _ffn_dict(ws), k=k, num_experts=num_experts, cap=cap)
+
+
+def _push_rank(rank, world, group, x_s, *ws_router, k, e_local, cap_e, cap_pair):
+    """ep_push on a rank: bin by owner, ``all_to_all`` the buffers to the
+    owners, run this rank's expert block (``ws_router``: its E/P slice of
+    each weight, then the router), ``all_to_all`` the values back."""
+    *ws, router = ws_router
+    send, send_e, gates, owner, pos, keep = _push_pre(
+        x_s, router, k=k, P=world, e_local=e_local, cap_pair=cap_pair)
+    recv, recv_e = group.all_to_all(send), group.all_to_all(send_e)
+    out = _push_owner(recv, recv_e, rank, _ffn_dict(tuple(ws)), e_local=e_local, cap_e=cap_e)
+    return _push_post(group.all_to_all(out), gates, owner, pos, keep, t=x_s.shape[0], k=k)
+
+
+def _pull_rank(rank, world, group, x_s, *ws_router, k, e_local, cap_e):
+    """ep_pull on a rank: ``all_gather`` every token and expert id, commit
+    the slots this rank owns into its buffers, run its expert block, and
+    ``all_reduce`` (sum) the slot values back; combine its own stripe."""
+    *ws, router = ws_router
+    t = x_s.shape[0]
+    gates, experts = route(x_s, router, k)
+    x_full = group.all_gather(x_s)
+    eg = group.all_gather(experts.reshape(-1))
+    buf, pos, keep = _pull_owner(x_full, eg, rank, _ffn_dict(tuple(ws)), k=k, e_local=e_local,
+                                 cap_e=cap_e)
+    contrib = gather_rows(buf, torch.where(keep, eg - rank * e_local, 0), pos, keep)
+    vals = group.all_reduce(contrib)[rank * t * k:(rank + 1) * t * k]
+    return _pull_combine(vals, gates, t=t, k=k)
+
+
+def _dispatch_mesh(x, router, *ws, mode, nodelets, experts_per_token, capacity_factor, mesh):
+    """The dispatch over ``mesh`` (``nodelets`` ranks): token stripe ``r``
+    on rank ``r``; tp replicates the experts, ep modes give each rank its
+    E/P expert block."""
+    P, k = nodelets, experts_per_token
+    T = x.shape[0]
+    E = router.shape[-1]
+    t = T // P
+    if mode == "tp":
+        outs = mesh.run(_tp_rank, sharded=(x,), replicated=(router, *ws), k=k, num_experts=E,
+                        cap=_cap(capacity_factor, t * k / E))
+    elif mode == "ep_push":
+        outs = mesh.run(_push_rank, sharded=(x, *ws), replicated=(router,), k=k, e_local=E // P,
+                        cap_e=_cap(capacity_factor, T * k / E),
+                        cap_pair=_cap(capacity_factor, t * k / P))
+    elif mode == "ep_pull":
+        outs = mesh.run(_pull_rank, sharded=(x, *ws), replicated=(router,), k=k, e_local=E // P,
+                        cap_e=_cap(capacity_factor, T * k / E))
+    else:
+        raise ValueError(f"unknown dispatch mode {mode!r}")
+    return torch.cat(outs)
+
+
+@kernel("moe_dispatch", "mesh")
+def _moe_dispatch_mesh(
+    sub: MeshSubstrate, x, router, *ws, strategy, nodelets, experts_per_token, capacity_factor,
+):
+    mode = dispatch_from_strategy(strategy, num_experts=int(router.shape[-1]), data_axis=nodelets)
+    return _dispatch_mesh(
+        x, router, *ws, mode=mode, nodelets=nodelets, experts_per_token=experts_per_token,
+        capacity_factor=capacity_factor, mesh=sub.mesh_of_width(nodelets, "moe_dispatch"),
     )
 
 

@@ -1,12 +1,17 @@
 """Substrates: where a MigratoryOp's plan executes.
 
-Two built-in backends:
+Three built-in backends:
 
 - ``local`` — plain PyTorch with the distributed semantics: the port's own
   correctness oracle.
 - ``cuda``  — routes the compute hot loops to the hand-written CUDA kernels
   (``kernels/spmv``, ``kernels/bfs``, ``kernels/topk_sim``); the counterpart
   of the JAX package's ``pallas`` substrate.
+- ``mesh``  — runs each op's per-nodelet body in rank processes joined by a
+  ``torch.distributed`` group (:mod:`repro_torch.launch.mesh`): replication,
+  ``all_gather`` pulls, ``all_to_all`` pushes between real processes. Its
+  bodies are plain PyTorch on the rank's device, as the JAX package's
+  ``shard_map`` bodies are plain ``jnp``.
 
 A substrate does not implement one method per op: its per-op entry points
 are *kernels* registered against its ``kind`` in the
@@ -33,11 +38,12 @@ from typing import Callable
 
 import torch
 
-from ..core.bfs import bfs_local
+from ..core.bfs import bfs_local, bfs_mesh
 from ..core.gsana import (
-    DEFAULT_VOCAB, NEG, _merge_pair_topk, _scatter_vertex_major, compute_similarity, pair_tasks,
+    DEFAULT_VOCAB, NEG, _merge_pair_topk, _scatter_vertex_major, compute_similarity,
+    compute_similarity_mesh, pair_tasks,
 )
-from ..core.spmv import spmv_local, unstripe_vector
+from ..core.spmv import spmv_local, spmv_mesh, unstripe_vector
 from ..core.strategies import Scheme
 from ..device import resolve_device
 from ..kernels.bfs.ops import bfs_cuda
@@ -128,6 +134,76 @@ class CudaSubstrate(Substrate):
     name = kind = "cuda"
 
 
+# the width of a mesh for ops whose inputs carry no partition count (GSANA's
+# task list): one Chick node's nodelets, the JAX package's make_nodelet_mesh default
+DEFAULT_NODELETS = 8
+
+
+class MeshSubstrate(Substrate):
+    """Runs kernels on a nodelet mesh: an explicit
+    :class:`~repro_torch.launch.mesh.NodeletMesh`, else the process's mesh
+    of as many ranks as the input has nodelets (:data:`DEFAULT_NODELETS`
+    for GSANA), started on first use on this substrate's device.
+
+    ``window`` is the executor pool's per-slot carving: the cards a slot's
+    meshes may take, so plans placed on different slots run on disjoint
+    cards (the reference carves devices). On one card there is one window.
+
+    The fingerprint holds the device and the window; an explicit mesh adds
+    its width and backend. Without one, the width is the input's (its
+    shapes are in the plan key's argument signature, GSANA's is the
+    constant), and the backend follows from width, device and window."""
+
+    name = kind = "mesh"
+    placement_policy = "affinity"
+
+    def __init__(self, device: "str | torch.device" = "cuda", mesh=None, *,
+                 window: "tuple[int, ...] | None" = None):
+        super().__init__(mesh.device if mesh is not None else device)
+        self.mesh = mesh
+        self.window = tuple(window) if window else None
+
+    def mesh_for(self, p: int):
+        """The mesh kernels run on: the explicit one, else the process's
+        ``p``-rank mesh (over the slot's window of cards, if any)."""
+        if self.mesh is not None:
+            return self.mesh
+        from ..launch.mesh import make_nodelet_mesh
+
+        return make_nodelet_mesh(p, self.device, cards=self.window)
+
+    def mesh_of_width(self, p: int, op: str):
+        """:meth:`mesh_for` ``p``, raising when an explicit mesh is of another
+        width (its ranks would take stripes sized for the wrong count)."""
+        mesh = self.mesh_for(p)
+        if mesh.p != p:
+            raise OpNotSupportedError(
+                f"{op} needs a {p}-rank nodelet mesh (inputs.nodelets), got {mesh.p}")
+        return mesh
+
+    def cache_fingerprint(self) -> tuple:
+        if self.mesh is not None:
+            return (self.name, str(self.device), self.mesh.p, self.mesh.backend, "explicit")
+        return (self.name, str(self.device), self.window)
+
+    def placement_slots(self) -> int:
+        """Independent channels are cards: an explicit mesh is one committed
+        channel, the CPU one device."""
+        if self.mesh is not None or self.device.type != "cuda":
+            return 1
+        return max(1, torch.cuda.device_count())
+
+    def placement_variant(self, slot: int, n_slots: int) -> "MeshSubstrate":
+        """Slot ``slot``'s window: the ``slot``-th of ``n_slots`` equal
+        blocks of cards. ``self`` with an explicit mesh, one slot, or fewer
+        cards than slots."""
+        width = self.placement_slots() // max(1, n_slots)
+        if self.mesh is not None or n_slots <= 1 or width < 1:
+            return self
+        lo = (slot % n_slots) * width
+        return MeshSubstrate(torch.device("cuda", lo), window=tuple(range(lo, lo + width)))
+
+
 # -- built-in kernels ----------------------------------------------------------
 # The algorithm code lives in repro_torch.core.*; these adapters bind it to a
 # backend. Registered here (not on the classes) so capability is data.
@@ -181,6 +257,22 @@ def _gsana_cuda(sub: CudaSubstrate, vs1, vs2, b1, b2, k, *, strategy):
     return _scatter_vertex_major(cand_b, score_b, b2, vs2.n, k)
 
 
+@kernel("spmv", "mesh")
+def _spmv_mesh(sub: MeshSubstrate, a, x, *, strategy):
+    return spmv_mesh(a, x, strategy, sub.mesh_for(a.P))
+
+
+@kernel("bfs", "mesh")
+def _bfs_mesh(sub: MeshSubstrate, g, root, *, strategy, max_rounds=None):
+    return bfs_mesh(g, root, strategy, max_rounds, mesh=sub.mesh_for(g.P))
+
+
+@kernel("gsana", "mesh")
+def _gsana_mesh(sub: MeshSubstrate, vs1, vs2, b1, b2, k, *, strategy):
+    return compute_similarity_mesh(vs1, vs2, b1, b2, k, strategy.scheme,
+                                   mesh=sub.mesh_for(DEFAULT_NODELETS))
+
+
 # -- registry ------------------------------------------------------------------
 
 _REGISTRY: dict[str, type[Substrate]] = {}
@@ -213,5 +305,14 @@ def get_substrate(substrate: "Substrate | str") -> Substrate:
     return cls()
 
 
+def substrate_for_mesh(mesh=None, device: "str | torch.device" = "cuda") -> Substrate:
+    """Shim resolution: a mesh means the mesh substrate over it, no mesh
+    the local substrate on ``device``."""
+    if mesh is None:
+        return LocalSubstrate(device)
+    return MeshSubstrate(mesh.device, mesh)
+
+
 register_substrate(LocalSubstrate)
 register_substrate(CudaSubstrate)
+register_substrate(MeshSubstrate)

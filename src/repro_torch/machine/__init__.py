@@ -27,7 +27,7 @@ from .perfmodel import COMM_CLASS, PerformanceModel, maybe_predict_plan_seconds
 def __getattr__(name):
     # lazy: ``python -m repro_torch.machine.microbench`` must not find the
     # module pre-imported by this package (runpy would warn)
-    if name in ("calibrate", "fit_alpha_beta"):
+    if name in ("calibrate", "fit_latency_rate"):
         from . import microbench
 
         return getattr(microbench, name)
@@ -49,7 +49,7 @@ __all__ = [
     "machine_fingerprint",
     "reset_default_machine_cache",
     "calibrate",
-    "fit_alpha_beta",
+    "fit_latency_rate",
     "COMM_CLASS",
     "PerformanceModel",
     "maybe_predict_plan_seconds",

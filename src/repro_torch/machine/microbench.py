@@ -14,13 +14,18 @@ bandwidth in three access classes (a sequential scale, a random-index
 gather, a random-index scatter-add — the latter two are the paper's
 irregular-access measurement), the dispatch overhead of a tiny op (the
 per-call floor of a synchronized call), one matmul rate, and the host's
-parallel capacity. The port has no mesh, so there are no collectives to
-measure: their alpha-beta terms are derived from the stream rate and the
-dispatch overhead, as for a one-device host.
+parallel capacity. The collectives (``all_gather``, ``all_to_all`` and
+``psum``, an ``all_reduce`` sum) are fitted to alpha-beta models over a
+nodelet mesh (:func:`measure_collectives`): an explicit one, else one rank
+a card. On one card, or on the CPU, with no mesh given there is nothing to
+measure across, as for the JAX package on a one-device host: the ``mesh``
+entry's terms are then derived from the stream rate and the dispatch
+overhead.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Callable, Iterable
 
@@ -50,6 +55,15 @@ STREAM_SIZES = {
 # on the CPU a few milliseconds.
 MATMUL_N = {"cpu": {"quick": 384, "full": 1024}, "cuda": {"quick": 8192, "full": 16384}}
 COLLECTIVE_KINDS = ("all_gather", "all_to_all", "psum")
+# Total message bytes (the whole gathered or exchanged array) per device type
+# and mode: a message too small for its bytes to show (the latency), then
+# sizes where the bytes dominate (the rate; see fit_latency_rate)
+COLLECTIVE_SIZES = {
+    "cpu": {"quick": (1 << 10, 1 << 16, 1 << 20, 1 << 22),
+            "full": (1 << 10, 1 << 16, 1 << 20, 1 << 24)},
+    "cuda": {"quick": (1 << 10, 1 << 16, 1 << 20, 1 << 24),
+             "full": (1 << 10, 1 << 16, 1 << 20, 1 << 24, 1 << 27)},
+}
 
 
 def _median_seconds(
@@ -76,24 +90,24 @@ def _median_seconds(
     return times[len(times) // 2]
 
 
-def fit_alpha_beta(
-    nbytes: Iterable[float], seconds: Iterable[float]
-) -> AlphaBeta:
-    """Least-squares fit of ``t = alpha + beta * n`` with both terms clamped
-    nonnegative (noisy small-message timings can produce a negative
-    intercept; a negative latency or bandwidth is never meaningful)."""
+def fit_latency_rate(nbytes: Iterable[float], seconds: Iterable[float]) -> AlphaBeta:
+    """``t = alpha + beta * n`` with alpha the smallest message's time (its
+    bytes are within the noise) and beta the least-squares slope of the
+    others through that point; both nonnegative.
+
+    The collectives' fit. It departs from the JAX package's on purpose:
+    that one fits a free intercept by least squares, and on a host where
+    other work runs, gloo's large messages slow down far more than
+    linearly, the intercept goes negative, and the latency is clamped to 0
+    (PERF.md, the mesh findings)."""
     n = np.asarray(list(nbytes), dtype=np.float64)
     t = np.asarray(list(seconds), dtype=np.float64)
-    if n.size == 0:
-        raise ValueError("fit_alpha_beta needs at least one sample")
-    if n.size == 1:
-        return AlphaBeta(alpha=0.0, beta=float(t[0] / max(n[0], 1.0)))
-    coeffs, *_ = np.linalg.lstsq(np.stack([np.ones_like(n), n], axis=1), t, rcond=None)
-    alpha, beta = float(coeffs[0]), float(coeffs[1])
-    if beta < 0:  # degenerate (timings not increasing): bandwidth-only refit
-        beta = float(t.sum() / max(n.sum(), 1.0))
-        alpha = 0.0
-    return AlphaBeta(alpha=max(0.0, alpha), beta=max(0.0, beta))
+    if n.size < 2:
+        raise ValueError("fit_latency_rate needs at least two sizes")
+    i = int(np.argmin(n))
+    dn, dt = n - n[i], t - t[i]
+    beta = float((dn * dt).sum() / max(float((dn * dn).sum()), 1.0))
+    return AlphaBeta(alpha=max(0.0, float(t[i])), beta=max(0.0, beta))
 
 
 def measure_stream_bw(device: torch.device, sizes: "tuple[int, ...]", iters: int = 3) -> float:
@@ -166,6 +180,76 @@ def measure_matmul_flops(device: torch.device, n: int, iters: int = 3) -> float:
     return 2.0 * n**3 / max(sec, 1e-9)
 
 
+def _collective_rank(rank, world, group, *, kind: str, elems: int, iters: int) -> float:
+    """A mesh body: the least seconds (this rank's host clock, staging
+    included) of ``iters`` warm collectives of ``kind`` on this rank's
+    ``elems // world`` float32 shard, each started with the ranks lined up
+    by an untimed ``all_reduce`` (so no sample holds a wait for a late
+    rank). The least: other work on a shared host only adds time."""
+    x = torch.arange(elems // world, dtype=torch.float32, device=group.device)
+    line_up = torch.zeros(1, device=group.device)
+    call = {"all_gather": group.all_gather, "all_to_all": group.all_to_all,
+            "psum": group.all_reduce}[kind]
+    times = []
+    for _ in range(iters + 1):
+        group.all_reduce(line_up)
+        before = group.seconds
+        call(x)
+        times.append(group.seconds - before)
+    return min(times[1:])
+
+
+def _noop_rank(rank, world, group) -> int:
+    return rank
+
+
+def measure_collectives(
+    sizes: "tuple[int, ...]",
+    kinds: "tuple[str, ...]" = COLLECTIVE_KINDS,
+    *,
+    mesh=None,
+    device: "str | torch.device" = "cuda",
+    iters: int = 10,
+) -> dict[str, AlphaBeta]:
+    """Alpha-beta models per collective over ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.NodeletMesh`), else over a mesh of
+    one rank a card of ``device``. Empty with fewer than two cards, or on
+    the CPU without a mesh (nothing to measure across). Each size is the
+    whole array in bytes; a sample is the slowest rank's least time, and
+    the fit :func:`fit_latency_rate`'s."""
+    if mesh is None:
+        dev = resolve_device(device)
+        n = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if n < 2:
+            return {}
+        from ..launch.mesh import make_nodelet_mesh
+
+        mesh = make_nodelet_mesh(n, dev)
+    p = mesh.p
+    out: dict[str, AlphaBeta] = {}
+    for kind in kinds:
+        samples = []
+        for size in sizes:
+            elems = max(p * p, size // 4 // (p * p) * (p * p))
+            sec = max(mesh.run(_collective_rank, kind=kind, elems=elems, iters=iters))
+            samples.append((elems * 4, sec))
+        out[kind] = fit_latency_rate(*zip(*samples))
+    return out
+
+
+def measure_mesh_dispatch(mesh, iters: int = 10) -> float:
+    """Median seconds of a warm mesh call that does nothing on the ranks:
+    the per-call floor of the ``mesh`` substrate (shipping, the pipes, the
+    caller's wait)."""
+    times = []
+    for _ in range(iters + 1):
+        t0 = time.perf_counter()
+        mesh.run(_noop_rank)
+        times.append(time.perf_counter() - t0)
+    times = sorted(times[1:])
+    return times[len(times) // 2]
+
+
 def measure_host_parallel_capacity(quick: bool = True) -> float:
     """How much the host scales two concurrent GIL-releasing workers vs one
     (2.0 = perfect). Recorded so host-bound readings on a shared host stay
@@ -194,11 +278,14 @@ def measure_host_parallel_capacity(quick: bool = True) -> float:
     return max(1.0, 2.0 * one / max(two, 1e-9))
 
 
-def calibrate(*, device: "str | torch.device" = "cuda", quick: bool = True) -> MachineProfile:
+def calibrate(*, device: "str | torch.device" = "cuda", quick: bool = True,
+              mesh=None) -> MachineProfile:
     """Run the suite on ``device`` (default the card; raises without one)
     and assemble a calibrated, fingerprinted :class:`MachineProfile`. The
     ``cuda`` substrate's entry is measured on the same device as
-    ``local``'s. Does not save — callers decide the path
+    ``local``'s; the ``mesh`` entry's collectives over ``mesh`` (else one
+    rank a card, see :func:`measure_collectives`), derived when there is
+    nothing to measure across. Does not save — callers decide the path
     (:meth:`MachineProfile.save`)."""
     dev = resolve_device(device)
     mode = "quick" if quick else "full"
@@ -209,20 +296,32 @@ def calibrate(*, device: "str | torch.device" = "cuda", quick: bool = True) -> M
     dispatch = measure_dispatch_overhead(dev)
     flops = measure_matmul_flops(dev, MATMUL_N[dev.type][mode])
     capacity = measure_host_parallel_capacity(quick=quick)
+    collectives = measure_collectives(COLLECTIVE_SIZES[dev.type][mode], mesh=mesh, device=dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()  # the probes' buffers are the caller's memory again
-    # one device, no mesh: the collective classes' terms are derived from
-    # the memory system so predictions stay finite and honest about their
-    # provenance (one dispatch of latency, a write and a read per byte)
+    # one device: the collective classes' terms are derived from the memory
+    # system so predictions stay finite and honest about their provenance
+    # (one dispatch of latency, a write and a read per byte)
+    derived = {k: AlphaBeta(alpha=dispatch, beta=2.0 / stream) for k in COLLECTIVE_KINDS}
     local = SubstrateProfile(
-        stream_bw=stream, dispatch_overhead=dispatch,
-        collectives={k: AlphaBeta(alpha=dispatch, beta=2.0 / stream) for k in COLLECTIVE_KINDS},
+        stream_bw=stream, dispatch_overhead=dispatch, collectives=derived,
         source="measured", gather_bw=gather, scatter_bw=scatter,
     )
+    if collectives:
+        # the mesh's per-call floor: a warm call of a body that does nothing
+        floor = measure_mesh_dispatch(mesh) if mesh is not None else collectives["all_gather"].alpha
+        mesh_profile = SubstrateProfile(
+            stream_bw=stream, dispatch_overhead=max(dispatch, floor), collectives=collectives,
+            source="measured", gather_bw=gather, scatter_bw=scatter,
+        )
+        ici = max(1.0 / max(ab.beta, 1e-18) for ab in collectives.values())
+    else:
+        mesh_profile = dataclasses.replace(local, source="derived")
+        ici = stream / 2.0
     return MachineProfile(
         fingerprint=machine_fingerprint(dev),
-        peaks=Peaks(flops=flops, hbm_bw=stream, ici_bw=stream / 2.0),
-        substrates={"local": local, "cuda": local},
+        peaks=Peaks(flops=flops, hbm_bw=stream, ici_bw=ici),
+        substrates={"local": local, "cuda": local, "mesh": mesh_profile},
         host_parallel_capacity=capacity,
         calibrated=True,
         quick=quick,

@@ -116,10 +116,12 @@ def test_run_takes_only_a_request(spmv_pair):
 
 
 def test_registry_and_capabilities(monkeypatch):
-    assert list_substrates() == ["cuda", "local"]
+    assert list_substrates() == ["cuda", "local", "mesh"]
     table = capabilities()
-    assert table == {**{op: {"cuda": True, "local": True} for op in ("bfs", "gsana", "spmv")},
-                     **{op: {"cuda": False, "local": True} for op in ("moe_decode", "moe_dispatch")}}
+    assert table == {
+        **{op: {"cuda": True, "local": True, "mesh": True} for op in ("bfs", "gsana", "spmv")},
+        **{op: {"cuda": False, "local": True, "mesh": True}
+           for op in ("moe_decode", "moe_dispatch")}}
     with pytest.raises(OpNotSupportedError, match="moe_dispatch"):
         default_registry().resolve_kernel("moe_dispatch", "cuda")
     with pytest.raises(ValueError, match="already registered"):

@@ -676,6 +676,71 @@ def test_decode_server_on_the_card_equals_the_oracle(cuda, comm, nodelets):
     assert served == oracle
 
 
+def _mesh_parity(dev, mesh) -> None:
+    """The main path's ops and moe_dispatch at small sizes on ``mesh``
+    (partitioned for its width), each equal to the local substrate's."""
+    from repro_torch.core import Comm, MigratoryStrategy
+    from repro_torch.engine import MeshSubstrate, PlanCache
+
+    p = mesh.p
+    sub, local = MeshSubstrate(dev, mesh), LocalSubstrate(dev)
+    a = T.partition_ell(TS.laplacian_2d(48, device=dev), p, device=dev)
+    x = torch.randn(a.shape[1], generator=torch.Generator().manual_seed(0)).to(dev)
+    g = TS.partition_graph(TS.edges_to_csr(TS.erdos_renyi_edges(12, 8, seed=1), 1 << 12,
+                                           device=dev), p, device=dev)
+    vs1, vs2, _ = T.generate_alignment_pair(1024, seed=2, device=dev)
+    grid = T.pick_grid(1024, 32)
+    cap = max(T.bucketize(vs1, grid, device=dev).cap, T.bucketize(vs2, grid, device=dev).cap)
+    gi = GSANAInputs(vs1, vs2, T.bucketize(vs1, grid, cap=cap, device=dev),
+                     T.bucketize(vs2, grid, cap=cap, device=dev))
+    cases = [("spmv", SpMVInputs(a, x), MigratoryStrategy()),
+             ("spmv", SpMVInputs(a, x), MigratoryStrategy(replicate_x=False)),
+             ("bfs", BFSInputs(g, 3), MigratoryStrategy(comm=Comm.REMOTE_WRITE)),
+             ("bfs", BFSInputs(g, 3), MigratoryStrategy(comm=Comm.MIGRATE)),
+             ("gsana", gi, MigratoryStrategy()),
+             ("moe_dispatch", _moe_dispatch_inputs(dev, p), MigratoryStrategy(comm=Comm.MIGRATE)),
+             ("moe_dispatch", _moe_dispatch_inputs(dev, p),
+              MigratoryStrategy(comm=Comm.REMOTE_WRITE))]
+    for op, inputs, st in cases:
+        got, _ = run(Request(op, inputs, st, sub), iters=1, warmup=0, cache=PlanCache())
+        want, _ = run(Request(op, inputs, st, local), iters=1, warmup=0, cache=PlanCache())
+        for gt, w in zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)):
+            assert gt.device == w.device and torch.equal(gt, w), (op, st)
+
+
+def test_mesh_of_eight_ranks_on_one_card_equals_local(cuda):
+    """Eight gloo ranks share the card (fewer than eight cards), every
+    collective staged through the host; results equal the local substrate's."""
+    from repro_torch.launch.mesh import COLLECTIVES, NodeletMesh
+
+    mesh = NodeletMesh(8, cuda, timeout=120)
+    try:
+        assert mesh.backend == "gloo" and mesh.staged == COLLECTIVES
+        _mesh_parity(mesh.device, mesh)
+    finally:
+        mesh.close()
+    assert not any(mesh.alive())
+
+
+def test_nccl_mesh_across_cards_equals_local(cuda):
+    """One rank a card over nccl (at least two cards), nothing staged:
+    shards move to each rank's card and results back to the caller's."""
+    from repro_torch.launch.mesh import NodeletMesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more: one nccl rank a card")
+    mesh = NodeletMesh(min(n, 4), cuda, timeout=120)
+    try:
+        assert mesh.backend == "nccl" and mesh.staged == ()
+        assert [d.index for d in mesh.rank_devices] == list(range(mesh.p))
+        _mesh_parity(mesh.device, mesh)
+    finally:
+        mesh.close()
+    assert not any(mesh.alive())
+
+
 def test_train_step_on_the_card_matches_the_cpu(cuda):
     """Five train steps of the reduced float32 LM on the card and on the CPU
     from the same weights and batches: the losses agree (TF32 is off) to

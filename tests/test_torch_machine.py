@@ -6,6 +6,7 @@ runner, the probe store, and a quick calibration of this host's CPU.
 Every test points both packages' machine and probe paths at files it owns
 (an autouse fixture), so a calibration left on this host changes nothing.
 """
+import dataclasses
 import json
 import warnings
 
@@ -29,7 +30,7 @@ from repro_torch.machine import (
     calibrate,
     default_machine,
     fingerprint_key,
-    fit_alpha_beta,
+    fit_latency_rate,
     load_machine,
     machine_fingerprint,
     reset_default_machine_cache,
@@ -189,27 +190,39 @@ def test_port_never_reads_the_reference_machine_file(tmp_path, monkeypatch):
 # -- alpha-beta fitting --------------------------------------------------------
 
 
-def test_fit_alpha_beta_recovers_synthetic_model():
+def test_fit_latency_rate_recovers_synthetic_model():
     alpha, beta = 2e-4, 1.0 / 5e9
     sizes = [1e4, 1e5, 1e6, 1e7]
-    fit = fit_alpha_beta(sizes, [alpha + beta * n for n in sizes])
-    assert fit.alpha == pytest.approx(alpha, rel=1e-6)
+    fit = fit_latency_rate(sizes, [alpha + beta * n for n in sizes])
+    assert fit.alpha == pytest.approx(alpha + beta * 1e4, rel=1e-9)  # the smallest's time
     assert fit.beta == pytest.approx(beta, rel=1e-6)
-    assert fit.seconds(1e6, launches=2.0) == pytest.approx(2 * alpha + beta * 1e6)
+    assert fit.seconds(1e6, launches=2.0) == pytest.approx(2 * fit.alpha + beta * 1e6)
 
 
-@pytest.mark.parametrize("sizes,times", [
-    ([1e4, 1e5, 1e6, 1e7], [3e-4, 2.5e-4, 4e-4, 2.1e-3]),
-    ([1e3, 1e4, 1e5], [1e-4, 1e-4, 1e-4]),  # pure latency
-    ([1e3, 1e6], [5e-4, 1e-4]),  # decreasing: bandwidth-only refit
-    ([4e6], [1e-3]),
+@pytest.mark.parametrize("sizes,times,beta", [
+    ([1e4, 1e5, 1e6, 1e7], [3e-4, 2.5e-4, 4e-4, 2.1e-3], None),
+    ([1e3, 1e4, 1e5], [1e-4, 1e-4, 1e-4], 0.0),  # pure latency
+    ([1e3, 1e6], [5e-4, 1e-4], 0.0),  # decreasing: the rate clamped
+    ([1e6, 1e3, 1e5], [2e-3, 1e-4, 3e-4], None),  # sizes in any order
+    # large messages slowed far past the line, as gloo's on a loaded host:
+    # the least-squares intercept of the JAX package's fit goes negative
+    ([1 << 10, 1 << 16, 1 << 20, 1 << 22], [5e-5, 6e-5, 2e-3, 2.5e-2], None),
 ])
-def test_fit_alpha_beta_equals_reference_and_stays_nonnegative(sizes, times):
-    fit = fit_alpha_beta(sizes, times)
-    assert fit.to_dict() == RM.fit_alpha_beta(sizes, times).to_dict()
-    assert fit.alpha >= 0.0 and fit.beta >= 0.0
-    with pytest.raises(ValueError):
-        fit_alpha_beta([], [])
+def test_fit_latency_rate_keeps_the_latency_and_stays_nonnegative(sizes, times, beta):
+    fit = fit_latency_rate(sizes, times)
+    assert fit.alpha == times[int(np.argmin(sizes))] > 0
+    assert fit.beta >= 0.0 and (beta is None or fit.beta == beta)
+    if beta is None:
+        assert fit.beta > 0.0
+
+
+def test_fit_latency_rate_needs_two_sizes_and_departs_from_the_reference_fit():
+    for sizes in ([], [1024]):
+        with pytest.raises(ValueError, match="two sizes"):
+            fit_latency_rate(sizes, [1e-4] * len(sizes))
+    sizes, slowed = [1 << 10, 1 << 16, 1 << 20, 1 << 22], [5e-5, 6e-5, 2e-3, 2.5e-2]
+    assert RM.fit_alpha_beta(sizes, slowed).alpha == 0.0  # clamped: no latency left
+    assert fit_latency_rate(sizes, slowed).alpha == 5e-5
 
 
 # -- the performance model against the reference's ----------------------------
@@ -369,9 +382,11 @@ def test_quick_calibration_of_the_cpu(tmp_path):
     profile = calibrate(device=CPU, quick=True)
     assert profile.calibrated and profile.quick
     assert profile.fingerprint == machine_fingerprint(CPU) and not profile.stale()
-    assert set(profile.substrates) == {"local", "cuda"}
+    assert set(profile.substrates) == {"local", "cuda", "mesh"}
     local = profile.substrate("local")
     assert profile.substrate("cuda") == local  # measured on the same device
+    # no mesh on the CPU: the mesh's terms are derived, as on a one-device host
+    assert profile.substrate("mesh") == dataclasses.replace(local, source="derived")
     rates = [local.stream_bw, local.gather_bw, local.scatter_bw, local.dispatch_overhead,
              profile.peaks.flops, profile.host_parallel_capacity]
     assert all(np.isfinite(v) and v > 0 for v in rates)

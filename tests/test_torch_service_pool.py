@@ -168,9 +168,13 @@ def test_workers_auto_sizes_from_substrate():
 
 def test_placement_table_shape():
     table = placement_table(CPU)
-    assert sorted(table) == ["cuda", "local"]
+    assert sorted(table) == ["cuda", "local", "mesh"]
     for name, row in table.items():
-        assert row["kind"] == name and row["policy"] == "spread" and row["slots"] >= 1
+        # the mesh pins a plan-key group to its slot (its ranks hold no
+        # second channel to steal into); one window on the CPU
+        policy = "affinity" if name == "mesh" else "spread"
+        assert row["kind"] == name and row["policy"] == policy and row["slots"] >= 1
+    assert table["mesh"]["slots"] == 1
     assert CUDA_STREAM_SLOTS >= 1
 
 
