@@ -133,6 +133,19 @@ result, without them or outside a checkout of the repository. In order:
    restart, the unfailed run's last losses); moonshot-v1-16b-a3b at full
    width cut to 2 of 48 layers, bf16, 3 steps (grads through routing and
    capacity buffers; the forward's drop share printed);
+7d. runs the LM on its ``(data, model)`` mesh (phase "LM (data, model)
+   mesh, 2 x 2 rank processes on the card"): flash_attn first at a rank's
+   head counts against its plain version; then 4 gloo rank processes share
+   the card (collectives staged through pinned host memory), each drawing
+   every weight from seed 0 and keeping its block: llama3.2-3b at full
+   width, a 4 x 2048 flash prefill (28 flash launches a rank), 4 decode
+   steps fed the unsharded model's greedy tokens and one train step, held
+   to the unsharded model (logits ``LM_LOGIT_ATOL``, loss
+   ``MESH_LOSS_ATOL``); moonshot-v1-16b-a3b cut to 4 layers in ep_push,
+   ep_pull and tp at factor 11 (no slot dropped; logits held) and 1.25
+   (each mode's drop share); ``lm_mesh {...}`` lines with ms, collective
+   calls and seconds a call per axis, flash launches and memory a rank;
+   every rank closed and its exit code 0;
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -266,6 +279,19 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 3
 # atomics), a few ulps; a dropped or doubled activation is off by whole
 # units
 REMAT_LAYERS, REMAT_GRAD_RTOL = 2, 1e-4
+# the LM's (data, model) mesh on the card: the mesh shape (4 rank processes
+# sharing the card, gloo, every collective staged through pinned host
+# memory), llama3.2-3b's decode steps on it (2.9-4.8 s each on an H100; 8 of
+# them took the phase to 128-162 s), moonshot-v1-16b-a3b cut to
+# MESH_MOE_LAYERS of its 48 layers, a capacity factor at which no slot can
+# drop (at least experts / top-k = 64 / 6: every expert's buffer holds every
+# token, in every mode and in the unsharded sublayer; at 8, 651 of 196,608
+# slots dropped on an H100, real hidden states routing unevenly), and the step-1
+# loss bound: the sharded and unsharded steps sum the same bf16 products in
+# other orders (a few 1e-3 of the loss; a wrong shard is off by whole units)
+MESH_LM_SHAPE, MESH_LM_GEN = (2, 2), 4
+MESH_MOE_LAYERS, MESH_NODROP_CF, MESH_LOSS_ATOL = 4, 11.0, 0.01
+MESH_LM_TIMEOUT_S = 900.0
 # the reduced float32 LM trained on the card and on the CPU, and the
 # supervised run's recovery: losses, relative. cuBLAS sums in other orders
 # than the CPU's BLAS, and the backward of a row gather (the embedding; the
@@ -406,6 +432,11 @@ def main() -> int:
                 reduced_train_path, smoke, dev)
     smoke.phase(f"LM train ({MOE_ARCH}, full width, {MOE_TRAIN_LAYERS} of 48 layers)",
                 moe_train_path, smoke, dev)
+    torch.cuda.empty_cache()
+    smoke.phase("flash_attn at the LM mesh ranks' head counts vs plain version",
+                flash_at_rank_shapes, smoke, dev)
+    smoke.phase(f"LM (data, model) mesh, {MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]} rank processes "
+                "on the card", lm_mesh_path, smoke, dev)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None:
@@ -2810,6 +2841,192 @@ def moe_train_path(smoke: Smoke, dev) -> dict:
     cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS, remat=True,
                               attn_impl="reference")
     return train_run(smoke, dev, cfg, MOE_TRAIN_STEPS, drop_share=True)
+
+
+def lm_mesh_path(smoke: Smoke, dev) -> dict:
+    """The LM's ``(data, model)`` mesh on the card (phase "LM (data, model)
+    mesh, 2 x 2 rank processes on the card"): :data:`MESH_LM_SHAPE` rank
+    processes sharing the card (gloo, every collective staged through
+    pinned host memory), each drawing every weight from seed 0 and keeping
+    its block (``CellPrograms.init``). llama3.2-3b at full width and depth:
+    a prefill at LM_BATCH x LM_PROMPT with flash attention and
+    :data:`MESH_LM_GEN` decode steps fed the unsharded model's greedy
+    tokens, each held to the unsharded model's logits (LM_LOGIT_ATOL); then
+    one train step (reference attention, remat) whose loss is held to the
+    unsharded loss (:data:`MESH_LOSS_ATOL`). moonshot-v1-16b-a3b at full
+    width cut to :data:`MESH_MOE_LAYERS` layers: a prefill in ep_push,
+    ep_pull and tp at factor :data:`MESH_NODROP_CF` (no slot may drop;
+    logits held to the unsharded prefill's), then at the config's 1.25 with
+    each mode's drop share. Every call prints its host ms, the ranks'
+    collective calls and seconds per axis, flash launches a rank and card
+    memory a rank (an ``lm_mesh {...}`` line); the ranks close in a
+    ``finally`` and every exit code must be 0. The unsharded references run
+    first, their weights freed before the ranks start."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+
+    card = card_line()
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    train_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)}
+    max_len = LM_PROMPT + MESH_LM_GEN
+
+    t0 = time.perf_counter()  # the unsharded references
+    model = api.init_params(cfg, seed=0, device=dev)
+    ctx = Ctx(cfg)
+    want_prefill, caches = api.prefill(ctx, model, prompts, max_len)
+    tokens, want_decode = [want_prefill.argmax(-1)], []
+    for _ in range(MESH_LM_GEN):
+        logits, caches = api.decode_step(ctx, model, tokens[-1], caches)
+        want_decode.append(logits.float())
+        tokens.append(logits.argmax(-1))
+    with torch.no_grad():
+        want_loss = float(api.loss_fn(Ctx(train_cfg), model, batch))
+    del model, caches
+    mcfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MESH_MOE_LAYERS, attn_impl="flash")
+    moe_prompts = prompts.remainder(mcfg.vocab_size)
+    model = api.init_params(mcfg, seed=0, device=dev)
+    nodrop = dataclasses.replace(mcfg, capacity_factor=MESH_NODROP_CF)
+    want_moe = api.prefill(Ctx(nodrop), model, moe_prompts, LM_PROMPT)[0].float()
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"  unsharded references ({LM_ARCH} prefill, {MESH_LM_GEN} decode steps, loss; "
+          f"{MOE_ARCH} {MESH_MOE_LAYERS} layers at factor {MESH_NODROP_CF}): "
+          f"{time.perf_counter() - t0:.1f} s; loss {want_loss:.6f}", flush=True)
+
+    rows: list = []
+
+    def record(what: str, progs, ms: float, **extra) -> dict:
+        stats = progs.last_stats
+        row = {"what": what, "ms": ms, "collectives": progs.collectives(),
+               "flash_launches_a_rank": [st["flash_launches"] for st in stats],
+               "peak_gib_a_rank": [round(st.get("peak_bytes", 0) / 2**30, 3) for st in stats],
+               "reserved_gib_a_rank": [round(st.get("reserved_bytes", 0) / 2**30, 3)
+                                       for st in stats], **extra}
+        for axis, c in row["collectives"].items():
+            c["seconds_a_call"] = c["seconds"] / max(c["calls"], 1)
+        rows.append(row)
+        print("  lm_mesh " + json.dumps({**row, "card": card}), flush=True)
+        return row
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t) * 1e3
+
+    def diff(got, want) -> float:
+        return float((got.float().to(want.device) - want).abs().max())
+
+    mesh = make_mesh(MESH_LM_SHAPE, ("data", "model"), device=dev, timeout=MESH_LM_TIMEOUT_S)
+    summary: dict = {"card": card}
+    try:
+        print(f"  {mesh.describe()}", flush=True)
+        summary.update(launch_to_ready_s=mesh.ready_seconds,
+                       reserved_gib_a_rank_at_ready=[
+                           round(m.get("reserved_bytes", 0) / 2**30, 3) for m in mesh.memory()])
+        shape = ShapeSpec("mesh_serve", "prefill", max_len, LM_BATCH)
+        pre = build_prefill_programs(cfg, mesh, shape, key="llama")
+        dec = build_decode_programs(cfg, mesh, dataclasses.replace(shape, kind="decode"),
+                                    key="llama")
+        _, init_ms = timed(pre.init, 0)
+        record("init llama3.2-3b (each rank draws every weight, keeps its block)", pre, init_ms)
+        for attempt in ("cold", "warm"):
+            logits, ms = timed(pre.step, {"tokens": prompts})
+            err = diff(logits, want_prefill.float())
+            row = record(f"prefill {attempt}", pre, ms, max_abs_logit_diff=err)
+            smoke.check(err <= LM_LOGIT_ATOL, f"mesh prefill logits differ by {err}")
+            smoke.check(row["flash_launches_a_rank"] == [cfg.num_layers] * mesh.size,
+                        f"flash launches a rank {row['flash_launches_a_rank']}")
+        decode_ms, errs = [], []
+        for i in range(MESH_LM_GEN):
+            logits, ms = timed(dec.step, tokens[i])
+            decode_ms.append(ms)
+            errs.append(diff(logits, want_decode[i]))
+        record("decode steps", dec, decode_ms[-1], decode_ms=decode_ms,
+               max_abs_logit_diff=max(errs))
+        smoke.check(max(errs) <= LM_LOGIT_ATOL, f"mesh decode logits differ by {max(errs)}")
+        pre.release()
+        train = build_train_programs(train_cfg, mesh,
+                                     ShapeSpec("mesh_train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                                     AdamWConfig(**TRAIN_OPT), key="llama-train")
+        _, init_ms = timed(train.init, 0)
+        metrics, ms = timed(train.step, batch)
+        row = record("train step", train, ms, loss=metrics["loss"], unsharded_loss=want_loss,
+                     grad_norm=metrics["grad_norm"])
+        smoke.check(abs(metrics["loss"] - want_loss) <= MESH_LOSS_ATOL,
+                    f"mesh step-1 loss {metrics['loss']} vs unsharded {want_loss}")
+        train.release()
+        summary.update(prefill_ms=rows[2]["ms"], decode_ms_a_step=float(np.median(decode_ms)),
+                       train_step_ms=ms, loss=metrics["loss"], unsharded_loss=want_loss)
+
+        modes = ("ep_push", "ep_pull", "tp")
+        moe_shape = ShapeSpec("mesh_moe", "prefill", LM_PROMPT, LM_BATCH)
+        base = build_prefill_programs(nodrop, mesh, moe_shape, key="moonshot")
+        _, init_ms = timed(base.init, 0)
+        record(f"init {MOE_ARCH} ({MESH_MOE_LAYERS} layers)", base, init_ms)
+        for cf in (MESH_NODROP_CF, mcfg.capacity_factor):
+            for mode in modes:
+                progs = build_prefill_programs(
+                    dataclasses.replace(mcfg, capacity_factor=cf, moe_dispatch=mode), mesh,
+                    moe_shape, key="moonshot")
+                logits, ms = timed(progs.step, {"tokens": moe_prompts})
+                drops = progs.drops()
+                share = 1 - drops["kept"] / max(drops["routed"], 1)
+                extra = {"mode": mode, "capacity_factor": cf, "drop_share": share}
+                if cf == MESH_NODROP_CF:
+                    err = diff(logits, want_moe)
+                    extra["max_abs_logit_diff"] = err
+                    smoke.check(drops["kept"] == drops["routed"] > 0,
+                                f"{mode} at factor {cf}: {drops}")
+                    smoke.check(err <= LM_LOGIT_ATOL, f"{mode}: logits differ by {err}")
+                record(f"{MOE_ARCH} prefill", progs, ms, **extra)
+        base.release()
+    finally:
+        mesh.close()
+        print(f"  lm mesh closed: rank exit codes {mesh.exit_codes}", flush=True)
+    smoke.check(mesh.exit_codes == [0] * mesh.size, f"a rank did not exit cleanly: {mesh.exit_codes}")
+    print("  lm_mesh_summary " + json.dumps(summary), flush=True)
+    return summary
+
+
+def flash_at_rank_shapes(smoke: Smoke, dev) -> None:
+    """flash_attn at the head counts a rank of the 2 x 2 mesh gives it
+    (llama3.2-3b: 12 q and 4 kv heads; moonshot-v1-16b-a3b: 8 and 8; the
+    padded-head path's MHA-repeated heads, 6 of them padded to 8), bf16, its
+    batch rows (2) at LM_PROMPT, against its plain version at the kernel's
+    k blocks."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain, flash_attn, kernel_block_k,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    b = LM_BATCH // MESH_LM_SHAPE[0]
+    for name, hq, hkv, pad in (("llama rank", 12, 4, 0), ("moonshot rank", 8, 8, 0),
+                               ("padded heads", 4, 4, 1)):
+        q, k, v = (torch.randn((b * h, LM_PROMPT, 128), generator=gen).to(dev, torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        if pad:  # the padded heads attend over zero K/V
+            q[-b:], k[-b:], v[-b:] = 0, 0, 0
+        before = flash_attn.launches
+        got = flash_attn(q, k, v, causal=True)
+        smoke.check(flash_attn.launches == before + 1, "flash_attn did not launch")
+        want = flash_attention_plain(q, k, v, causal=True,
+                                     block_k=kernel_block_k(torch.bfloat16, 128))
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
+        print(f"  flash at a rank's heads ({name}: {hq} q, {hkv} kv, B {b}, S {LM_PROMPT}, D 128): "
+              f"max |diff| {err:.3g} against the plain version", flush=True)
 
 
 def finish(smoke: Smoke) -> int:

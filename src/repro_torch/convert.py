@@ -16,7 +16,10 @@ state, Zamba2 or Whisper caches) with :func:`decode_state_from_numpy`, the
 optimizer's state with
 :func:`opt_state_from_numpy`, the ``moe_decode`` op's flat parameters with
 :func:`moe_decode_params_from_numpy`; :func:`lm_params_to_numpy` and
-:func:`opt_state_to_numpy` go back to the JAX package's tree layout.
+:func:`opt_state_to_numpy` go back to the JAX package's tree layout. On the
+LM's ``(data, model)`` mesh, :func:`shard_params` gives the block of each
+parameter (or moment) a rank holds, and :func:`unshard_params` puts every
+rank's blocks back whole.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from .core.spmv import PartitionedELL
 from .device import resolve_device
 from .models import api
 from .models.config import ModelConfig
+from .models.sharding import Rules, block_of, unblock
 from .models.transformer import MOE_DECODE_PARAM_KEYS, moe_decode_params
 from .optim import AdamWState
 from .sparse.csr import CSR
@@ -202,3 +206,21 @@ def decode_state_from_numpy(cfg: ModelConfig, state, device="cuda"):
         else torch.as_tensor(np.array(fields[name]), device=dev).to(getattr(empty, name).dtype)
         for name in empty._fields
     })
+
+
+def shard_params(named: dict, cfg: ModelConfig, rules: Rules, coords: dict, sizes: dict) -> dict:
+    """The block of each whole tensor of ``named`` (parameters, or moments
+    keyed by the parameters' names) that the rank at mesh coordinates
+    ``coords`` holds, as ``api.param_specs`` and ``rules`` lay it out
+    (views; ``sizes`` is the mesh's axis -> size)."""
+    specs = api.param_specs(cfg)
+    return {n: block_of(t, rules.spec(*specs[n]), coords, sizes) for n, t in named.items()}
+
+
+def unshard_params(blocks: list, coords: list, cfg: ModelConfig, rules: Rules,
+                   sizes: dict) -> dict:
+    """The inverse of :func:`shard_params`: every rank's name-keyed blocks
+    (``coords[r]`` the coordinates of ``blocks[r]``) put back whole."""
+    specs = api.param_specs(cfg)
+    return {n: unblock([b[n] for b in blocks], coords, rules.spec(*specs[n]), sizes)
+            for n in blocks[0]}

@@ -1,5 +1,10 @@
-"""The nodelet mesh: one rank process a nodelet, joined by a
-``torch.distributed`` process group.
+"""Meshes of rank processes joined by ``torch.distributed``: the nodelet
+mesh (one rank a nodelet, one axis) and the LM's N-D mesh with named axes
+(:func:`make_mesh`, :class:`DeviceMesh`: one process group a line of each
+axis, a rank's view of it its world group's ``mesh``). :func:`make_mesh` and
+:func:`make_mesh_over` are the port's one mesh-construction site, the role
+the JAX package's ``compat.py`` plays there; :func:`make_production_mesh`
+describes the (16, 16) and (2, 16, 16) meshes without starting processes.
 
     mesh = make_nodelet_mesh(8, device="cuda")
     outs = mesh.run(_spmv_rank, sharded=(cols, vals), replicated=(x,), grain=g)
@@ -48,6 +53,8 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import datetime
+import itertools
+import math
 import os
 import shutil
 import tempfile
@@ -66,7 +73,7 @@ from ..device import resolve_device
 #: seconds a call, a rendezvous or a collective may take before it fails
 DEFAULT_TIMEOUT = 120.0
 #: the collectives a body can call, by their ``shard_map`` names' counterparts
-COLLECTIVES = ("all_gather", "all_to_all", "all_reduce")
+COLLECTIVES = ("all_gather", "all_to_all", "all_reduce", "reduce_scatter")
 BACKEND_RULE = (
     "nccl when the device is CUDA and torch.cuda.device_count() >= P (one card a rank), "
     "otherwise gloo (the ranks share the device)"
@@ -74,6 +81,7 @@ BACKEND_RULE = (
 
 # all_gather_into_tensor was renamed all_gather_single (same signature)
 _ALL_GATHER_INTO = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_REDUCE_SCATTER_INTO = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
 
 
@@ -107,12 +115,16 @@ def staged_collectives(backend: str, device: torch.device) -> tuple[str, ...]:
 
 
 class RankGroup:
-    """The collectives of one rank, over the world group. Each returns a
-    new tensor on the rank's device and adds its host seconds (staging
-    copies included) to :attr:`seconds`."""
+    """The collectives of one rank, over the world group or over the
+    process group ``pg`` (an axis of an N-D mesh; ``rank`` and ``world``
+    are then the rank's place in it and its size). Each returns a new
+    tensor on the rank's device and adds its host seconds (staging copies
+    included) to :attr:`seconds`."""
 
-    def __init__(self, rank: int, world: int, device: torch.device, backend: str):
+    def __init__(self, rank: int, world: int, device: torch.device, backend: str, pg=None):
         self.rank, self.world, self.device, self.backend = rank, world, device, backend
+        self.pg = pg
+        self.mesh: "RankMesh | None" = None  # the world group's: the rank's N-D mesh view
         self.staged = bool(staged_collectives(backend, device))
         self.seconds = 0.0
         self.calls = 0
@@ -141,21 +153,31 @@ class RankGroup:
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` laid end to end along dim 0 (``tiled=True``)."""
-        return self._collective(_ALL_GATHER_INTO, t, (self.world * t.shape[0], *t.shape[1:]))
+        return self._collective(lambda out, src: _ALL_GATHER_INTO(out, src, group=self.pg), t,
+                                (self.world * t.shape[0], *t.shape[1:]))
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t``, block ``rank`` of its dim 0
+        (``psum_scatter`` tiled)."""
+        if t.shape[0] % self.world:
+            raise ValueError(f"reduce_scatter needs dim 0 ({t.shape[0]}) divisible by {self.world}")
+        return self._collective(lambda out, src: _REDUCE_SCATTER_INTO(out, src, group=self.pg), t,
+                                (t.shape[0] // self.world, *t.shape[1:]))
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Dim 0 of ``t`` in ``world`` equal blocks, block j to rank j; the
         result holds the blocks received, in source rank order."""
         if t.shape[0] % self.world:
             raise ValueError(f"all_to_all needs dim 0 ({t.shape[0]}) divisible by {self.world}")
-        return self._collective(lambda out, src: dist.all_to_all_single(out, src), t, t.shape)
+        return self._collective(lambda out, src: dist.all_to_all_single(out, src, group=self.pg),
+                                t, t.shape)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """The elementwise ``op`` (sum, min, max) of every rank's ``t``."""
 
         def reduce(out, src):
             out.copy_(src)
-            dist.all_reduce(out, op=_REDUCE_OPS[op])
+            dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.pg)
 
         return self._collective(reduce, t, t.shape)
 
@@ -237,6 +259,8 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], obj: Any) -> Any:
     dataclasses) replaced by ``fn(tensor)``."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a named tuple
+        return type(obj)(*(_map_tensors(fn, v) for v in obj))
     if isinstance(obj, (tuple, list)):
         return type(obj)(_map_tensors(fn, v) for v in obj)
     if isinstance(obj, dict):
@@ -432,6 +456,190 @@ class NodeletMesh:
         return [proc.is_alive() for proc in self._procs]
 
 
+# -- N-D meshes with named axes (the LM's (data, model) mesh) -------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axes and sizes, with no processes (a description, such as
+    the production mesh the dry-run reads)."""
+
+    sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+class RankMesh:
+    """A rank's view of its N-D mesh: ``shape`` (axis -> size),
+    ``coords`` (axis -> this rank's index) and ``group(axis)``, the
+    :class:`RankGroup` of the ranks that differ from this one along that
+    axis only (none for an axis of size 1). Ranks are laid out row-major,
+    the last axis fastest, as a JAX mesh lays out its devices. It also
+    holds what the rank keeps between calls (``resident``) and what a call
+    counts besides its collectives (``tallies``, such as MoE slots)."""
+
+    def __init__(self, rank: int, sizes: tuple, axes: tuple, groups: dict, device: torch.device):
+        self.rank, self.device = rank, device
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, sizes))
+        self.coords = dict(zip(axes, _unravel(rank, sizes)))
+        self._groups = groups
+        self.resident: dict = {}
+        self.tallies: dict[str, int] = {}
+
+    def group(self, axis: str) -> RankGroup:
+        return self._groups[axis]
+
+    def tally(self, name: str, n: int) -> None:
+        self.tallies[name] = self.tallies.get(name, 0) + n
+
+    def reset_counts(self) -> None:
+        """Zero the collective counters and the tallies."""
+        self.tallies = {}
+        for g in self._groups.values():
+            if g is not None:
+                g.seconds, g.calls = 0.0, 0
+
+    def counts(self) -> dict:
+        """Collective calls and host seconds over each axis since the last
+        :meth:`reset_counts`."""
+        return {a: {"calls": g.calls, "seconds": g.seconds}
+                for a, g in self._groups.items() if g is not None}
+
+
+def _unravel(rank: int, sizes: tuple) -> tuple[int, ...]:
+    coords = []
+    for n in reversed(sizes):
+        coords.append(rank % n)
+        rank //= n
+    return tuple(reversed(coords))
+
+
+def _ravel(coords: tuple, sizes: tuple) -> int:
+    r = 0
+    for c, n in zip(coords, sizes):
+        r = r * n + c
+    return r
+
+
+def _init_axes(rank: int, world: int, group: RankGroup, *, sizes: tuple, axes: tuple) -> dict:
+    """A rank body: one process group an axis and a line of ranks along it,
+    made by every rank in the same order (``dist.new_group`` is collective),
+    kept as ``group.mesh``, the rank's :class:`RankMesh`."""
+    mine: dict = {}
+    for ai, axis in enumerate(axes):
+        mine[axis] = None
+        if sizes[ai] == 1:
+            continue
+        others = [range(n) for j, n in enumerate(sizes) if j != ai]
+        for rest in itertools.product(*others):
+            line = [_ravel(rest[:ai] + (c,) + rest[ai:], sizes) for c in range(sizes[ai])]
+            pg = dist.new_group(line)
+            if rank in line:
+                mine[axis] = RankGroup(line.index(rank), sizes[ai], group.device, group.backend, pg)
+    group.mesh = RankMesh(rank, sizes, axes, mine, group.device)
+    return dict(group.mesh.coords)
+
+
+class DeviceMesh:
+    """An N-D mesh of rank processes with named axes: ``prod(shape)`` ranks
+    of a :class:`NodeletMesh` (its backend rule, shipping and failure
+    contract), and in each rank a :class:`RankMesh` with one process group a
+    line of every axis. :meth:`run` is ``shard_map``'s counterpart: every
+    rank runs ``body(rank, world, group, *replicated, **static)`` and reads
+    its coordinates and axis groups from ``group.mesh`` (a :class:`RankMesh`)."""
+
+    def __init__(self, shape, axes, device: "str | torch.device" = "cuda", *,
+                 cards: "tuple[int, ...] | None" = None, timeout: float = DEFAULT_TIMEOUT):
+        sizes, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(sizes) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"a mesh needs one distinct name a dim: shape {sizes}, axes {axes}")
+        t0 = time.perf_counter()
+        self.axis_names, self.sizes = axes, sizes
+        self.shape = dict(zip(axes, sizes))
+        self.size = math.prod(sizes)
+        self.nodes = NodeletMesh(self.size, device, cards=cards, timeout=timeout)
+        self.device, self.backend = self.nodes.device, self.nodes.backend
+        self.coords = self.nodes.run(_init_axes, sizes=sizes, axes=axes)
+        self.ready_seconds = time.perf_counter() - t0
+        with _MESHES_LOCK:
+            _DEVICE_MESHES.append(self)
+
+    @property
+    def exit_codes(self) -> list:
+        """The ranks' exit codes once closed (0: a clean exit)."""
+        return self.nodes.exit_codes
+
+    def run(self, body: Callable, replicated: tuple = (), **static) -> list:
+        """``body`` on every rank, its results in rank order (raises
+        :class:`MeshError` and closes the mesh when a rank fails)."""
+        return self.nodes.run(body, (), replicated, **static)
+
+    def memory(self) -> list[dict]:
+        return self.nodes.memory()
+
+    def describe(self) -> str:
+        axes = " x ".join(f"{a} {n}" for a, n in self.shape.items())
+        return f"mesh ({axes}): {self.nodes.describe()}"
+
+    def close(self, timeout: float = 10.0) -> None:
+        self.nodes.close(timeout)
+
+
+def make_mesh(shape, axes, device: "str | torch.device" = "cuda", *,
+              cards: "tuple[int, ...] | None" = None,
+              timeout: float = DEFAULT_TIMEOUT) -> DeviceMesh:
+    """The port's one mesh-construction site: ``prod(shape)`` rank processes
+    with named axes (one card a rank under nccl when the host has enough,
+    else gloo ranks sharing ``device``)."""
+    return DeviceMesh(shape, axes, device, cards=cards, timeout=timeout)
+
+
+def make_mesh_over(devices, axes, *, timeout: float = DEFAULT_TIMEOUT) -> DeviceMesh:
+    """A 1-D mesh over an explicit device list (a placement window): one
+    rank a device, on those cards (nccl) or on the CPU (gloo)."""
+    devs = [torch.device(d) if not isinstance(d, int) else torch.device("cuda", d) for d in devices]
+    axes = tuple(axes)
+    if len(axes) != 1:
+        raise ValueError(f"make_mesh_over builds a 1-D mesh, got axes {axes}")
+    if {d.type for d in devs} != {devs[0].type}:
+        raise ValueError(f"devices of one type, got {devs}")
+    if devs[0].type == "cuda":
+        cards = tuple(d.index if d.index is not None else 0 for d in devs)
+        return DeviceMesh((len(devs),), axes, torch.device("cuda", cards[0]), cards=cards,
+                          timeout=timeout)
+    return DeviceMesh((len(devs),), axes, devs[0], timeout=timeout)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16x16 = 256 chips per pod; 2 pods = 512 chips multi-pod (a
+    description: no processes start)."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def make_host_mesh(n: "int | None" = None, device: "str | torch.device" = "cuda", *,
+                   timeout: float = DEFAULT_TIMEOUT) -> DeviceMesh:
+    """Whatever this host offers, as a 1-D ``data`` mesh: one rank a card
+    (nccl) by default, or ``n`` ranks (gloo when the cards are fewer, or on
+    the CPU; one rank there by default)."""
+    dev = resolve_device(device)
+    if n is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return DeviceMesh((n,), ("data",), dev, timeout=timeout)
+
+
+_DEVICE_MESHES: "list[DeviceMesh]" = []
+
+
 # -- the process's meshes -------------------------------------------------------------
 
 _MESHES: "dict[tuple, NodeletMesh]" = {}
@@ -467,7 +675,8 @@ def make_nodelet_mesh(p: int = 8, device: "str | torch.device" = "cuda", *,
 def close_meshes() -> None:
     """Close every mesh this process started."""
     with _MESHES_LOCK:
-        meshes = list(_MESHES.values())
+        meshes = list(_MESHES.values()) + [m.nodes for m in _DEVICE_MESHES]
+        _DEVICE_MESHES.clear()
     for mesh in meshes:
         mesh.close()
 

@@ -3,15 +3,31 @@ attention (training, prefill, cache decode and cross-attention), MLP.
 
 Plain functions do the work, over any object whose attributes hold the
 parameters; the ``nn.Module`` classes here only hold them (same names and
-``(in, out)`` layouts as the JAX package's parameter dicts). One device and
-no mesh: :class:`Ctx` holds the config only. Activations are
+``(in, out)`` layouts as the JAX package's parameter dicts). Activations are
 ``(B, S, H, Dh)`` inside the model and ``(B, H, S, D)`` at
 :func:`flash_attention`.
+
+Every function is mesh-optional. Without a mesh :class:`Ctx` holds the
+config only and the model runs on one device. In a rank process of the
+LM's ``(data, model)`` mesh, ``Ctx.mesh`` is the rank's
+``launch.mesh.RankMesh`` and ``Ctx.rules`` the sharding rules: the model
+then holds the rank's block of every tensor, and the layout changes the
+rules name (``Ctx.cs``, ``Ctx.reduce``) are collectives over the axes'
+process groups (``models/sharding.py``). The residual stream is
+``("batch", "residual_seq", None)`` (:data:`RES`) between sublayers:
+seq-sharded over ``model`` in training and prefill (Megatron-SP), whole in
+decode. Attention and the MLP gather it, project column-parallel (the
+``heads``/``d_ff`` columns this rank holds), and the row-parallel ``wo``
+and ``w_down`` leave partial sums that :meth:`Ctx.reduce` reduce-scatters
+back into the residual layout (or all-reduces when it is not seq-sharded).
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import functools
+from types import SimpleNamespace
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -19,12 +35,86 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import flash_attention
+from . import sharding as sh
 from .config import ModelConfig
+from .sharding import Rules
+
+#: the residual stream's layout between sublayers
+RES = ("batch", "residual_seq", None)
 
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
+    """The config, and on a mesh the rank's mesh view and the rules."""
+
     cfg: ModelConfig
+    mesh: Any = None
+    rules: "Rules | None" = None
+
+    def axes(self, logical: "str | None") -> tuple[str, ...]:
+        """The mesh axes (of size > 1) the rules give ``logical``."""
+        if self.mesh is None or self.rules is None or logical is None:
+            return ()
+        return sh._live(self.mesh, getattr(self.rules, logical))
+
+    def size(self, axis: str) -> int:
+        """A mesh axis's size (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.shape.get(axis, 1)
+
+    def index(self, axes) -> int:
+        """This rank's block index over mesh ``axes`` (0 without a mesh)."""
+        return 0 if self.mesh is None else sh.axis_index(self.mesh, axes)
+
+    def cs(self, x: torch.Tensor, *axes, src: tuple = ()) -> torch.Tensor:
+        """``x`` from the layout ``src`` (logical axes a dim; missing dims
+        whole) to ``axes``: the JAX package's sharding constraint, made with
+        collectives. Nothing without a mesh."""
+        if self.mesh is None or self.rules is None:
+            return x
+        return sh.relayout(self.mesh, x, self.rules.spec(*src), self.rules.spec(*axes))
+
+    def reduce(self, x: torch.Tensor, *axes, over: str = "model") -> torch.Tensor:
+        """``x`` holds partial sums over the mesh axis ``over`` and is laid
+        out as ``axes`` elsewhere: the sum, laid out as ``axes``
+        (reduce-scatter into the dim that ``axes`` shards over ``over``,
+        else all-reduce)."""
+        if self.mesh is None or self.size(over) == 1:
+            return x
+        for d, entry in enumerate(self.rules.spec(*axes)):
+            if over in sh.axes_of(entry):
+                return sh.reduce_scatter(self.mesh, x, (over,), d)
+        return sh.psum(self.mesh, x, (over,))
+
+    def psum(self, x: torch.Tensor, logical: str) -> torch.Tensor:
+        """The sum over the mesh axes of ``logical`` (e.g. the batch axes)."""
+        if self.mesh is None:
+            return x
+        return sh.psum(self.mesh, x, self.axes(logical))
+
+    def weight(self, t: torch.Tensor, logical: tuple) -> torch.Tensor:
+        """A weight stored as ``logical`` in its layout at use: the FSDP
+        dims gathered (their gradient reduce-scattered back)."""
+        if self.mesh is None:
+            return t
+        return self.cs(t, *sh.compute_spec(logical), src=logical)
+
+    def gathered(self, module, specs: dict, keep=()) -> Any:
+        """A view of ``module``'s parameters (nested attributes, as the
+        module's) with each weight in its layout at use, by its logical
+        spec in ``specs`` (keyed by the module-relative name); the
+        submodules named in ``keep`` pass as they are stored. ``module``
+        itself without a mesh."""
+        if self.mesh is None:
+            return module
+        root = SimpleNamespace()
+        for name, t in module.named_parameters():
+            parts = name.split(".")
+            node = root
+            for key in parts[:-1]:
+                node = node.__dict__.setdefault(key, SimpleNamespace())
+            stored = parts[0] in keep
+            setattr(node, parts[-1], t if stored else self.weight(t, specs[name]))
+        return root
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -39,13 +129,20 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
 
 
+#: called with each parameter :func:`_normal` draws, in draw order; returns
+#: the parameter to keep (a rank keeps its block, ``launch/steps.py``)
+DRAW_HOOK: "contextvars.ContextVar[Any]" = contextvars.ContextVar("draw_hook", default=None)
+
+
 def _normal(shape, cfg: ModelConfig, gen: torch.Generator, device, dtype=None) -> nn.Parameter:
     """N(0, 0.02) in the config's type (or ``dtype``), as the JAX package's
     initializers, drawn in place: no float32 copy of a bf16 tensor is made."""
     t = torch.empty(shape, dtype=dtype or dtype_of(cfg), device=device)
     with torch.no_grad():
         t.normal_(0.0, 0.02, generator=gen)
-    return nn.Parameter(t)
+    p = nn.Parameter(t)
+    hook = DRAW_HOOK.get()
+    return p if hook is None else hook(p)
 
 
 def remat(fn):
@@ -187,6 +284,9 @@ def _attend(
         return o.transpose(1, 2)
     scale = dh ** -0.5
     dense = dict(causal=causal, window=window, scale=scale, sq_total=sq)
+    # the budget holds per shard: on a mesh q is already the rank's block
+    # (its batch rows; its heads when they shard, padded heads included),
+    # the JAX package's global score bytes over its batch x head shards
     if kv_valid_len is not None or b * hq * sq * skv * 4 <= _SCORE_BYTE_BUDGET or sq <= 128:
         return _attend_dense(q, k, v, q_offset=0, kv_valid_len=kv_valid_len, **dense)
     cq = sq
@@ -218,10 +318,93 @@ class Attention(nn.Module):
                 setattr(self, name, nn.Parameter(torch.zeros(n, dtype=dtype_of(cfg), device=device)))
 
 
+def _split_heads(ctx: Ctx, t: torch.Tensor, n: int, rule: str) -> torch.Tensor:
+    """(B, S, cols) -> (B, S, heads, Dh). On a mesh ``t`` holds this rank's
+    ``heads`` columns: whole heads when ``rule`` (``heads4d`` or
+    ``kv_heads4d``) shards over ``model``, else the columns are gathered
+    first and every head is kept."""
+    b, s, _ = t.shape
+    m = ctx.size("model")
+    if m > 1 and ctx.axes(rule):
+        return t.reshape(b, s, n // m, -1)
+    t = ctx.cs(t, None, None, None, src=(None, None, "heads"))
+    return t.reshape(b, s, n, -1)
+
+
+def _kv_for_local_heads(ctx: Ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hq: int,
+                        hkv: int):
+    """The k and v heads this rank's q heads read (q head h reads kv head
+    h // group). They are k, v as given unless q's heads shard over
+    ``model`` and k's do not; then the kv heads of the local q heads, in
+    the group map's order (one kv head a q head when the local q heads do
+    not split into whole groups)."""
+    hq_l = q.shape[2]
+    if hq_l == hq or k.shape[2] != hkv:
+        return k, v
+    group = hq // hkv
+    lo = ctx.index("model") * hq_l
+    if hq_l % group == 0:
+        sl = slice(lo // group, (lo + hq_l) // group)
+        return k[:, :, sl], v[:, :, sl]
+    if group % hq_l == 0:
+        sl = slice(lo // group, lo // group + 1)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(lo, lo + hq_l, device=k.device) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _wo_columns(ctx: Ctx, o: torch.Tensor, hq: int) -> torch.Tensor:
+    """The attention output (B, S, heads, Dh) as the rows of ``wo`` this
+    rank holds: its heads' columns as they are, or, where every head is
+    here (attention replicated over ``model``), this rank's ``heads``
+    block of the columns."""
+    b, s, h, dh = o.shape
+    o = o.reshape(b, s, h * dh)
+    if h == hq:
+        o = ctx.cs(o, None, None, "heads", src=(None, None, None))
+    return o
+
+
+def _write_seq(cache: torch.Tensor, new: torch.Tensor, start: int, lo: int) -> None:
+    """Write ``new`` (B, s, ...) at global positions ``start`` .. into the
+    cache block that holds global positions ``lo`` .. ``lo + len``."""
+    n, s = cache.shape[1], new.shape[1]
+    a, b = max(start, lo), min(start + s, lo + n)
+    if a < b:
+        cache[:, a - lo:b - lo] = new[:, a - start:b - start].to(cache.dtype)
+
+
+def _attend_kv_sharded(ctx: Ctx, q, ck, cv, *, causal, window, kv_valid_len: int, axes):
+    """Decode attention over a KV sequence sharded over ``axes``: each rank
+    scores its block of positions, then the softmax's max, its sum and the
+    weighted values are reduced over ``axes`` (float32 throughout)."""
+    b, sq, hq, dh = q.shape
+    n, hkv = ck.shape[1], ck.shape[2]
+    group = hq // hkv
+    lo = sh.axis_index(ctx.mesh, axes) * n
+    qg = q.float().reshape(b, sq, hkv, group, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck.float()) * dh ** -0.5
+    q_pos = kv_valid_len - sq + torch.arange(sq, device=q.device)[:, None]
+    k_pos = lo + torch.arange(n, device=q.device)[None, :]
+    mask = k_pos < kv_valid_len
+    if causal:
+        mask = mask & (q_pos >= k_pos)
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
+    s = s.masked_fill(~mask, float("-inf"))
+    m_loc = s.amax(dim=-1, keepdim=True)
+    m = sh.pmax(ctx.mesh, m_loc, axes)
+    p = torch.exp(s - m).nan_to_num(0.0)
+    den = sh.psum(ctx.mesh, p.sum(dim=-1, keepdim=True), axes)
+    num = sh.psum(ctx.mesh, torch.einsum("bhgqk,bkhd->bhgqd", p, cv.float()), axes)
+    o = torch.where(den > 0, num / den.clamp_min(1e-30), 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
 def attn_sublayer(
     ctx: Ctx,
     p,
-    x: torch.Tensor,  # (B, S, D)
+    x: torch.Tensor,  # (B, S, D), the residual layout
     *,
     pos_offset: int = 0,
     cache: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, Smax, Hkv, Dh) x2
@@ -237,37 +420,72 @@ def attn_sublayer(
     - decode: ``cache`` and ``cache_len`` given, x is the new token(s);
     - cross-attention: ``xkv`` given, keys and values from it, no rope, no
       causal mask and no window.
+
+    On a mesh (module docstring) q, k and v are this rank's heads when the
+    rules shard them (``heads4d``, ``kv_heads4d``), else every head, and
+    attention over every head is replicated over ``model``; with
+    ``cfg.tp_pad_heads`` and heads that do not divide ``model``, KV is
+    repeated to one head a q head and the heads zero-padded to a multiple of
+    ``model``, each rank attending over its block of them (exact: padded
+    heads attend over zero K/V and are dropped before ``wo``). A cache
+    sharded over ``kv_seq`` is read by :func:`_attend_kv_sharded`. The
+    (k, v) returned are laid out ``("batch", None, "kv_heads4d", None)``.
     """
     cfg = ctx.cfg
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    x = ctx.cs(x, "batch", None, None, src=RES)
     b, s, _ = x.shape
-    hd, hq, hkv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
     src = x if xkv is None else xkv
     q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, src.shape[1], hkv, hd)
-    v = v.reshape(b, src.shape[1], hkv, hd)
+    q = _split_heads(ctx, q, hq, "heads4d")
+    k = _split_heads(ctx, k, hkv, "kv_heads4d")
+    v = _split_heads(ctx, v, hkv, "kv_heads4d")
     if use_rope and cfg.pos_emb == "rope" and xkv is None:
         # k takes the query positions too: at decode, the new tokens' own
         qpos = torch.arange(s, device=x.device) + pos_offset
         q = rope(q, qpos, cfg.rope_theta, cfg.rope_fraction)
         k = rope(k, qpos, cfg.rope_theta, cfg.rope_fraction)
+    m = ctx.size("model")
     if cache is not None:
         ck, cv = cache
-        # written in place, where the JAX package's dynamic_update_slice
-        # makes a new array: the caller's cache holds the new entries after
-        ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
-        o = _attend(ctx, q, ck, cv, causal=causal, window=cfg.sliding_window,
-                    kv_valid_len=cache_len + s)
+        seq_axes = ctx.axes("kv_seq")
+        if seq_axes:
+            lo = sh.axis_index(ctx.mesh, seq_axes) * ck.shape[1]
+            _write_seq(ck, k, cache_len, lo)
+            _write_seq(cv, v, cache_len, lo)
+            if q.shape[2] * hkv != hq * ck.shape[2]:  # q's heads shard, the cache's do not
+                q = ctx.cs(q, None, None, None, None, src=(None, None, "heads4d", None))
+            o = _attend_kv_sharded(ctx, q, ck, cv, causal=causal, window=cfg.sliding_window,
+                                   kv_valid_len=cache_len + s, axes=seq_axes)
+        else:
+            # written in place, where the JAX package's dynamic_update_slice
+            # makes a new array: the caller's cache holds the new entries after
+            ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
+            cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
+            kl, vl = _kv_for_local_heads(ctx, q, ck, cv, hq, hkv)
+            o = _attend(ctx, q, kl, vl, causal=causal, window=cfg.sliding_window,
+                        kv_valid_len=cache_len + s)
         new_cache = (ck, cv)
     else:
         self_attn = xkv is None
-        o = _attend(ctx, q, k, v, causal=causal and self_attn,
-                    window=cfg.sliding_window if self_attn else None)
+        mask = dict(causal=causal and self_attn, window=cfg.sliding_window if self_attn else None)
+        if cfg.tp_pad_heads and m > 1 and hq % m != 0 and not ctx.axes("heads4d"):
+            hq_pad = -(-hq // m) * m
+            pad = (0, 0, 0, hq_pad - hq)
+            qp, kp, vp = (F.pad(t, pad) for t in (
+                q, k.repeat_interleave(hq // hkv, dim=2), v.repeat_interleave(hq // hkv, dim=2)))
+            full = ("batch", None, None, None)
+            padded = ("batch", None, "heads_pad", None)
+            qp, kp, vp = (ctx.cs(t, *padded, src=full) for t in (qp, kp, vp))
+            o = ctx.cs(_attend(ctx, qp, kp, vp, **mask), *full, src=padded)[:, :, :hq]
+        else:
+            kl, vl = _kv_for_local_heads(ctx, q, k, v, hq, hkv)
+            o = _attend(ctx, q, kl, vl, **mask)
         new_cache = (k, v)
-    return o.reshape(b, s, hq * hd) @ p.wo, new_cache
+    out = _wo_columns(ctx, o, hq) @ p.wo
+    return ctx.reduce(out, *RES), new_cache
 
 
 # -- MLP -----------------------------------------------------------------------
@@ -287,8 +505,11 @@ class MLP(nn.Module):
 
 
 def mlp_sublayer(ctx: Ctx, p, x: torch.Tensor) -> torch.Tensor:
+    """x in the residual layout; on a mesh ``d_ff`` is this rank's block
+    (column-parallel ``w_gate``/``w_up``, row-parallel ``w_down``)."""
+    x = ctx.cs(x, "batch", None, None, src=RES)
     if ctx.cfg.act == "swiglu":
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = F.gelu(x @ p.w_up, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p.w_down
+    return ctx.reduce(h @ p.w_down, *RES)

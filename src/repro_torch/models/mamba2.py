@@ -135,3 +135,18 @@ def mamba_sublayer(ctx: Ctx, p: Mamba, x: torch.Tensor, state: MambaLayerState |
     y = rmsnorm(y.reshape(bsz, s, di).to(x.dtype), p.out_norm, cfg.norm_eps)
     y = y * F.silu(z)
     return y @ p.out_proj, MambaLayerState(h=hstate, conv=conv_tail)
+
+
+def mamba_param_specs() -> dict:
+    """One Mamba-2 layer's logical specs (the JAX package's table, no layer
+    dim), keyed by the layer-relative names."""
+    return {
+        "in_proj": ("fsdp", "heads"),
+        "conv_w": (None, "heads"),
+        "conv_b": ("heads",),
+        "a_log": ("heads",),
+        "d_skip": ("heads",),
+        "dt_bias": ("heads",),
+        "out_norm": ("heads",),
+        "out_proj": ("heads", "fsdp"),
+    }

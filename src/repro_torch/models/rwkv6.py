@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from . import sharding as sh
 from .config import ModelConfig
 from .layers import Ctx, RMSNorm, _normal, dtype_of, generator, remat, rmsnorm
 from .losses import chunked_cross_entropy
@@ -277,3 +278,35 @@ def decode_step(ctx: Ctx, params: RWKV6, token: torch.Tensor, state: RWKVState):
         states.append((s_new, tm_new, cm_new))
     x = rmsnorm(x, params.final_norm.w, eps)
     return (x @ params.lm_head)[:, None, :], RWKVState(*(torch.stack(f) for f in zip(*states)))
+
+
+# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical specs keyed by the parameter names (one tensor a layer)."""
+    vec = ("heads",)  # (d,) vectors shard with the head dim
+    blocks = {
+        "ln1": {"w": (None,)}, "ln2": {"w": (None,)},
+        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_w": vec, "mu_g": vec,
+        "w_r": ("fsdp", "heads"), "w_k": ("fsdp", "heads"),
+        "w_v": ("fsdp", "heads"), "w_g": ("fsdp", "heads"),
+        "w_o": ("heads", "fsdp"),
+        "w_decay": vec, "w_lora_a": ("fsdp", None), "w_lora_b": (None, "heads"),
+        "u_bonus": vec, "ln_x": {"w": (None,)},
+        "cmu_k": vec, "cmu_r": vec,
+        "cw_k": ("fsdp", "d_ff"), "cw_v": ("d_ff", "fsdp"),
+        "cw_r": ("fsdp", "heads"),
+    }
+    return sh.expand_layers(
+        {"embed": ("vocab", "fsdp"), "blocks": blocks, "final_norm": {"w": (None,)},
+         "lm_head": ("fsdp", "vocab")},
+        {"blocks": cfg.num_layers})
+
+
+def state_specs(cfg: ModelConfig) -> RWKVState:
+    return RWKVState(
+        s=(None, "batch", "heads4d", None, None),
+        tm_x=(None, "batch", None),
+        cm_x=(None, "batch", None),
+    )

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from . import sharding as sh
 from .config import ModelConfig
 from .layers import (
     MLP, Attention, Ctx, RMSNorm, _attend, _normal, attn_sublayer, dtype_of, generator,
@@ -203,3 +204,33 @@ def decode_step(ctx: Ctx, params: Whisper, token: torch.Tensor, caches: WhisperC
         x = x + mlp_sublayer(ctx, blk.mlp, norm(ctx, blk.ln2, x))
     x = norm(ctx, params.final_norm, x)
     return x @ params.lm_head, caches._replace(length=ln + token.shape[1])
+
+
+# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical specs keyed by the parameter names (one tensor a layer)."""
+    def nrm():
+        return {"w": (None,), "b": (None,)}
+
+    def attn():
+        return {"wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
+                "wv": ("fsdp", "heads"), "wo": ("heads", "fsdp")}
+
+    def mlp():
+        return {"w_up": ("fsdp", "d_ff"), "w_down": ("d_ff", "fsdp")}
+
+    enc = {"ln1": nrm(), "ln2": nrm(), "attn": attn(), "mlp": mlp()}
+    dec = {"ln1": nrm(), "ln2": nrm(), "ln_x": nrm(), "attn": attn(), "xattn": attn(),
+           "mlp": mlp()}
+    return sh.expand_layers(
+        {"embed": ("vocab", "fsdp"), "enc_blocks": enc, "enc_norm": nrm(), "dec_blocks": dec,
+         "final_norm": nrm(), "lm_head": ("fsdp", "vocab")},
+        {"enc_blocks": cfg.encoder_layers, "dec_blocks": cfg.num_layers})
+
+
+def cache_specs(cfg: ModelConfig) -> WhisperCaches:
+    s = (None, "batch", "kv_seq", "kv_heads4d", None)
+    x = (None, "batch", None, "kv_heads4d", None)
+    return WhisperCaches(self_k=s, self_v=s, cross_k=x, cross_v=x, length=())

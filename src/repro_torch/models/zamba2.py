@@ -20,7 +20,10 @@ from .layers import (
     remat,
 )
 from .losses import chunked_cross_entropy
-from .mamba2 import CONV_W, P_HEAD, Mamba, MambaLayerState, dims, mamba_sublayer
+from . import sharding as sh
+from .mamba2 import (
+    CONV_W, P_HEAD, Mamba, MambaLayerState, dims, mamba_param_specs, mamba_sublayer,
+)
 
 
 class ZambaCaches(NamedTuple):
@@ -168,3 +171,30 @@ def decode_step(ctx: Ctx, params: Zamba2, token: torch.Tensor, caches: ZambaCach
     x = norm(ctx, params.final_norm, x)
     return x @ params.lm_head, caches._replace(mamba_h=hs, mamba_conv=convs,
                                                length=caches.length + token.shape[1])
+
+
+# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical specs keyed by the parameter names (one tensor a layer)."""
+    attn = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
+            "wv": ("fsdp", "heads"), "wo": ("heads", "fsdp")}
+    return sh.expand_layers(
+        {"embed": ("vocab", "fsdp"),
+         "blocks": {"ln": {"w": (None,)}, "mamba": mamba_param_specs()},
+         "shared_attn": {"ln1": {"w": (None,)}, "ln2": {"w": (None,)}, "attn": attn,
+                         "mlp": {"w_gate": ("fsdp", "d_ff"), "w_up": ("fsdp", "d_ff"),
+                                 "w_down": ("d_ff", "fsdp")}},
+         "final_norm": {"w": (None,)}, "lm_head": ("fsdp", "vocab")},
+        {"blocks": cfg.num_layers})
+
+
+def cache_specs(cfg: ModelConfig) -> ZambaCaches:
+    return ZambaCaches(
+        mamba_h=(None, "batch", "heads4d", None, None),
+        mamba_conv=(None, "batch", None, "heads"),
+        attn_k=(None, "batch", "kv_seq", "kv_heads4d", None),
+        attn_v=(None, "batch", "kv_seq", "kv_heads4d", None),
+        length=(),
+    )

@@ -16,6 +16,12 @@ place: parameters and moments keep their tensors, and the float32 copy of a
 gradient lives for one parameter at a time, so the optimizer adds one
 parameter's float32 temporaries to the moments, not a float32 copy of every
 gradient.
+
+On the LM's ``(data, model)`` mesh each rank updates its blocks in place,
+given a ``reduce`` (``models/api.py::MeshReduce``): the global gradient
+norm sums every rank's squares with each replicated block counted once,
+and the int8 scale's amax is the max over every rank's blocks of the
+group, as the JAX package's global ``max`` is.
 """
 from __future__ import annotations
 
@@ -94,11 +100,13 @@ def compress_decompress(g: torch.Tensor, residual: torch.Tensor) -> tuple[torch.
     return _compress_group([g], [residual])[0]
 
 
-def _compress_group(gs: list, residuals: list) -> list[tuple[torch.Tensor, torch.Tensor]]:
+def _compress_group(gs: list, residuals: list, reduce=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """EF int8 round-trip of tensors quantized with one shared scale: a
     (decompressed grad, new residual) pair for each."""
     g_efs = [g + r for g, r in zip(gs, residuals)]
     amax = torch.stack([g.abs().max() for g in g_efs]).max()
+    if reduce is not None:
+        amax = reduce.amax(amax)
     out = []
     for g_ef in g_efs:
         q, scale = _quantize_int8(g_ef, amax)
@@ -125,9 +133,11 @@ def global_norm(tensors: Mapping[str, torch.Tensor] | Iterable[torch.Tensor]) ->
 
 
 @torch.no_grad()
-def apply_updates(params, state: AdamWState, grads: Mapping[str, torch.Tensor], cfg: AdamWConfig):
+def apply_updates(params, state: AdamWState, grads: Mapping[str, torch.Tensor], cfg: AdamWConfig,
+                  reduce=None):
     """One AdamW step, in place. ``params`` is a module or a name -> tensor
-    mapping, ``grads`` holds a gradient for each of its names. Returns
+    mapping, ``grads`` holds a gradient for each of its names (``reduce``:
+    the mesh's norm and amax reductions, module docstring). Returns
     (params, state, metrics) as the JAX package does; ``state``'s moments
     (and residuals) are the same tensors, updated, and its step advanced;
     metrics are ``grad_norm`` (0-d float32 tensor, before clipping) and
@@ -137,12 +147,13 @@ def apply_updates(params, state: AdamWState, grads: Mapping[str, torch.Tensor], 
     src = dict(grads)
     if cfg.compress_grads:
         for group in scale_groups(named):
-            pairs = _compress_group([src[n].float() for n in group], [state.ef_residual[n] for n in group])
+            pairs = _compress_group([src[n].float() for n in group],
+                                    [state.ef_residual[n] for n in group], reduce)
             for n, (deq, resid) in zip(group, pairs):
                 src[n] = deq
                 state.ef_residual[n].copy_(resid)
 
-    gnorm = global_norm(src)
+    gnorm = global_norm(src) if reduce is None else torch.sqrt(reduce.sum_squares(src))
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(gnorm.new_tensor(cfg.clip_norm) / torch.clamp(gnorm, min=1e-9), max=1.0)

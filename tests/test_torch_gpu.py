@@ -817,3 +817,228 @@ def test_bf16_checkpoint_round_trip_from_the_card(cuda, tmp_path):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     for n, t in state.mu.items():
         assert torch.equal(t, fresh_state.mu[n])
+
+
+# -- the LM's (data, model) mesh -------------------------------------------------------------
+
+
+def _lm_mesh_needs(cards: int) -> None:
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards: one nccl rank a card (one card runs chip_smoke.py's "
+                    "mesh phase instead)")
+
+
+def _card_line() -> str:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown card"
+
+
+@pytest.mark.parametrize("hq,hkv,b", [(12, 4, 2), (8, 8, 2), (6, 6, 1), (2, 1, 4)])
+def test_lm_mesh_flash_at_a_rank_s_head_counts(cuda, hq, hkv, b):
+    """flash_attn at the head counts a rank gets: llama3.2-3b on a model
+    axis of 2 (12 q, 4 kv), moonshot-v1-16b-a3b (8, 8), the padded-head
+    path's MHA heads with zero K/V in the padding, the reduced config's
+    GQA on a model axis of 2 (2 q heads reading 1 kv head)."""
+    gen = torch.Generator().manual_seed(hq)
+    q, k, v = (torch.randn((b * h, 512, 128), generator=gen).to(cuda, torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    if hq == hkv == 6:
+        q[-b:], k[-b:], v[-b:] = 0, 0, 0
+    before = flash_attn.launches
+    got = flash_attn(q, k, v, causal=True)
+    assert flash_attn.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, block_k=kernel_block_k(torch.bfloat16, 128))
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1e-2)
+
+
+def test_lm_mesh_reduced_on_the_card_matches_the_cpu(cuda):
+    """The reduced float32 llama on a 2 x 2 mesh of rank processes on the
+    card (gloo with the collectives staged through the host, or nccl with
+    four cards), flash attention at prefill: prefill, two decode steps, the
+    loss and every gradient equal the unsharded model's on the CPU (TF32
+    off; float32 sums in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+
+    cfg = dataclasses.replace(reduced_config("llama3.2-3b"), attn_impl="flash")
+    # the ranks draw with the card's generator: the CPU model takes those weights
+    model = api.init_params(cfg, seed=0, device=cuda).to("cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 35)))
+    ctx = Ctx(cfg)
+    want, caches = api.prefill(ctx, model, toks[:, :32], 34)
+    want_dec = []
+    for i in range(2):
+        logits, caches = api.decode_step(ctx, model, toks[:, 32 + i:33 + i], caches)
+        want_dec.append(logits)
+    tcfg = dataclasses.replace(cfg, attn_impl="reference")
+    with torch.enable_grad():
+        loss = api.loss_fn(Ctx(tcfg), model, {"tokens": toks[:, :33]})
+        grads = dict(zip([n for n, _ in model.named_parameters()],
+                         torch.autograd.grad(loss, list(model.parameters()))))
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=300)
+    try:
+        pre = build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", 34, 4))
+        dec = build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", 34, 4))
+        pre.init(seed=0)
+        tol = dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(pre.step({"tokens": toks[:, :32].to(cuda)}).cpu(), want, **tol)
+        assert all(st["flash_launches"] == cfg.num_layers for st in pre.last_stats)
+        for i in range(2):
+            torch.testing.assert_close(dec.step(toks[:, 32 + i:33 + i].to(cuda)).cpu(),
+                                       want_dec[i], **tol)
+        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", 32, 4))
+        train.init(seed=0)
+        got_loss, got = train.loss_and_grads({"tokens": toks[:, :33].to(cuda)})
+        torch.testing.assert_close(got_loss.cpu(), loss.detach(), **tol)
+        for name, g in grads.items():
+            scale = float(g.abs().max()) or 1.0
+            torch.testing.assert_close(got[name].cpu(), g, rtol=0, atol=1e-4 * scale, msg=name)
+    finally:
+        mesh.close()
+    assert mesh.exit_codes == [0] * 4
+
+
+def _mesh_memory_gib(progs) -> list:
+    return [round(st.get("peak_bytes", 0) / 2**30, 2) for st in progs.last_stats]
+
+
+def test_lm_mesh_llama_full_width_on_four_cards(cuda):
+    """llama3.2-3b at full width on a 2 x 2 mesh, one nccl rank a card: a
+    4 x 2048 prefill with flash attention, 8 decode steps fed the unsharded
+    model's greedy tokens and one train step (reference attention, remat),
+    held to the unsharded model on card 0 (logits 0.5, loss 0.01). Prints
+    the times and each card's peak memory."""
+    import dataclasses
+    import time
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+
+    _lm_mesh_needs(4)
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), attn_impl="flash")
+    tcfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2048))).to(cuda)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2049))).to(cuda)}
+    model = api.init_params(cfg, seed=0, device=cuda)
+    ctx = Ctx(cfg)
+    want, caches = api.prefill(ctx, model, prompts, 2056)
+    tokens, want_dec = [want.argmax(-1)], []
+    for _ in range(8):
+        logits, caches = api.decode_step(ctx, model, tokens[-1], caches)
+        want_dec.append(logits.float())
+        tokens.append(logits.argmax(-1))
+    with torch.no_grad():
+        want_loss = float(api.loss_fn(Ctx(tcfg), model, batch))
+    del model, caches
+    torch.cuda.empty_cache()
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=600)
+    try:
+        assert mesh.backend == "nccl"
+        shape = ShapeSpec("p", "prefill", 2056, 4)
+        pre = build_prefill_programs(cfg, mesh, shape)
+        dec = build_decode_programs(cfg, mesh, dataclasses.replace(shape, kind="decode"))
+        pre.init(seed=0)
+        pre.step({"tokens": prompts})
+        t0 = time.perf_counter()
+        got = pre.step({"tokens": prompts})
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        assert float((got.float() - want.float()).abs().max()) <= 0.5
+        errs, ms = [], []
+        for i in range(8):
+            t0 = time.perf_counter()
+            logits = dec.step(tokens[i])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            errs.append(float((logits.float() - want_dec[i]).abs().max()))
+        assert max(errs) <= 0.5, errs
+        serve_mem = _mesh_memory_gib(dec)
+        pre.release()
+        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", 2048, 4),
+                                     AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4))
+        train.init(seed=0)
+        t0 = time.perf_counter()
+        metrics = train.step(batch)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        assert abs(metrics["loss"] - want_loss) <= 0.01, (metrics, want_loss)
+        print(f"\nlm_mesh four cards llama3.2-3b ({_card_line()}): launch to ready "
+              f"{mesh.ready_seconds:.2f} s; prefill {prefill_ms:.1f} ms (max |logit diff| "
+              f"{float((got.float() - want.float()).abs().max()):.4f}); decode ms {ms} (max "
+              f"|diff| {max(errs):.4f}); train step {step_ms:.1f} ms, loss {metrics['loss']:.6f} "
+              f"vs {want_loss:.6f}; peak GiB a card serving {serve_mem}, training "
+              f"{_mesh_memory_gib(train)}; collectives {train.collectives()}")
+    finally:
+        mesh.close()
+    assert mesh.exit_codes == [0] * 4
+
+
+def test_lm_mesh_moonshot_full_depth_ep_push_on_four_cards(cuda):
+    """moonshot-v1-16b-a3b at full width and full depth (48 layers, 56.1 GB
+    of bf16 weights, about 14 GB a card) on a 2 x 2 mesh, one nccl rank a
+    card, an ep_push prefill at 4 x 2048: at capacity factor 11 (at least
+    experts / top-k, so every expert's buffer holds every token) no slot
+    drops and the logits hold to the unsharded prefill on card 0 (0.5);
+    then at the config's 1.25, its drop share. Prints the times and each
+    card's peak memory."""
+    import dataclasses
+    import time
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_prefill_programs
+    from repro_torch.models import Ctx, api
+
+    _lm_mesh_needs(4)
+    base = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), attn_impl="flash",
+                               moe_dispatch="ep_push")
+    nodrop = dataclasses.replace(base, capacity_factor=11.0)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, base.vocab_size,
+                                                                (4, 2048))).to(cuda)
+    model = api.init_params(nodrop, seed=0, device=cuda)
+    want = api.prefill(Ctx(nodrop), model, prompts, 2048)[0].float()
+    del model
+    torch.cuda.empty_cache()
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=900)
+    try:
+        assert mesh.backend == "nccl"
+        shape = ShapeSpec("p", "prefill", 2048, 4)
+        pre = build_prefill_programs(nodrop, mesh, shape, key="moonshot")
+        t0 = time.perf_counter()
+        pre.init(seed=0)
+        init_s = time.perf_counter() - t0
+        pre.step({"tokens": prompts})
+        t0 = time.perf_counter()
+        got = pre.step({"tokens": prompts})
+        ms = (time.perf_counter() - t0) * 1e3
+        drops = pre.drops()
+        err = float((got.float() - want).abs().max())
+        assert drops["kept"] == drops["routed"] > 0, drops
+        assert err <= 0.5, err
+        mem = _mesh_memory_gib(pre)
+        coll = pre.collectives()
+        at125 = build_prefill_programs(base, mesh, shape, key="moonshot")
+        t0 = time.perf_counter()
+        at125.step({"tokens": prompts})
+        ms125 = (time.perf_counter() - t0) * 1e3
+        d = at125.drops()
+        print(f"\nlm_mesh four cards moonshot-v1-16b-a3b 48 layers ep_push ({_card_line()}): "
+              f"launch to ready {mesh.ready_seconds:.2f} s, init {init_s:.1f} s; prefill at "
+              f"factor 11 {ms:.1f} ms (max |logit diff| {err:.4f}, no drops), at 1.25 "
+              f"{ms125:.1f} ms (drop share {1 - d['kept'] / d['routed']:.5f}); peak GiB a card "
+              f"{mem}; collectives {coll}")
+    finally:
+        mesh.close()
+    assert mesh.exit_codes == [0] * 4
