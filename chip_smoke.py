@@ -138,7 +138,7 @@ result, without them or outside a checkout of the repository. In order:
    head counts against its plain version; then 4 gloo rank processes share
    the card (collectives staged through pinned host memory), each drawing
    every weight from seed 0 and keeping its block: llama3.2-3b at full
-   width, a 4 x 2048 flash prefill (28 flash launches a rank), 4 decode
+   width, a 4 x 2048 flash prefill (28 flash launches a rank), 2 decode
    steps fed the unsharded model's greedy tokens and one train step, held
    to the unsharded model (logits ``LM_LOGIT_ATOL``, loss
    ``MESH_LOSS_ATOL``); moonshot-v1-16b-a3b cut to 4 layers in ep_push,
@@ -146,6 +146,16 @@ result, without them or outside a checkout of the repository. In order:
    (each mode's drop share); ``lm_mesh {...}`` lines with ms, collective
    calls and seconds a call per axis, flash launches and memory a rank;
    every rank closed and its exit code 0;
+7e. runs the ssm, hybrid and encdec families on a new 2 x 2 mesh of rank
+   processes on the card (phase "LM (data, model) mesh: ssm, hybrid,
+   encdec"): rwkv6-3b, zamba2-2.7b and whisper-small at full width and
+   depth, each drawn from seed 0 by the ranks, a prefill at its
+   ``FAMILIES`` prompt and LM_BATCH and 2 decode steps fed the unsharded
+   model's greedy tokens, held to its logits (``LM_LOGIT_ATOL``); then one
+   train step at full width and cut depth (``MESH_FAMILY_TRAIN``), its loss
+   held to the unsharded loss (``MESH_LOSS_ATOL``); flash launches a rank a
+   prefill as ``flash_per_serve`` counts them; an ``lm_mesh {...}`` line a
+   family; every rank closed and its exit code 0;
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -282,16 +292,26 @@ REMAT_LAYERS, REMAT_GRAD_RTOL = 2, 1e-4
 # the LM's (data, model) mesh on the card: the mesh shape (4 rank processes
 # sharing the card, gloo, every collective staged through pinned host
 # memory), llama3.2-3b's decode steps on it (2.9-4.8 s each on an H100; 8 of
-# them took the phase to 128-162 s), moonshot-v1-16b-a3b cut to
+# them took the phase to 128-162 s, 4 to 110 s; 2 since the families' mesh
+# phase follows it), moonshot-v1-16b-a3b cut to
 # MESH_MOE_LAYERS of its 48 layers, a capacity factor at which no slot can
 # drop (at least experts / top-k = 64 / 6: every expert's buffer holds every
 # token, in every mode and in the unsharded sublayer; at 8, 651 of 196,608
 # slots dropped on an H100, real hidden states routing unevenly), and the step-1
 # loss bound: the sharded and unsharded steps sum the same bf16 products in
 # other orders (a few 1e-3 of the loss; a wrong shard is off by whole units)
-MESH_LM_SHAPE, MESH_LM_GEN = (2, 2), 4
+MESH_LM_SHAPE, MESH_LM_GEN = (2, 2), 2
 MESH_MOE_LAYERS, MESH_NODROP_CF, MESH_LOSS_ATOL = 4, 11.0, 0.01
 MESH_LM_TIMEOUT_S = 900.0
+# the ssm, hybrid and encdec families on a 2 x 2 mesh on the card: served at
+# full width and depth (their FAMILIES prompt, LM_BATCH rows, greedy decode
+# steps), and one train step at full width, TRAIN_BATCH rows, cut to (layers,
+# sequence): rwkv6-3b 4 of 32 layers, zamba2-2.7b one shared-attention group
+# (6 of 54 layers, 2 microbatches), whisper-small whole at its decoder's 448
+# positions over its 1500 frames
+MESH_FAMILIES, MESH_FAMILY_GEN = ("rwkv6-3b", "zamba2-2.7b", "whisper-small"), 2
+MESH_FAMILY_TRAIN = {"rwkv6-3b": (4, TRAIN_SEQ), "zamba2-2.7b": (6, TRAIN_SEQ),
+                     "whisper-small": (12, 448)}
 # the reduced float32 LM trained on the card and on the CPU, and the
 # supervised run's recovery: losses, relative. cuBLAS sums in other orders
 # than the CPU's BLAS, and the backward of a row gather (the embedding; the
@@ -437,6 +457,9 @@ def main() -> int:
                 flash_at_rank_shapes, smoke, dev)
     smoke.phase(f"LM (data, model) mesh, {MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]} rank processes "
                 "on the card", lm_mesh_path, smoke, dev)
+    smoke.phase("LM (data, model) mesh: ssm, hybrid, encdec, "
+                f"{MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]} rank processes on the card",
+                lm_mesh_families_path, smoke, dev)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None:
@@ -2908,26 +2931,12 @@ def lm_mesh_path(smoke: Smoke, dev) -> dict:
     rows: list = []
 
     def record(what: str, progs, ms: float, **extra) -> dict:
-        stats = progs.last_stats
-        row = {"what": what, "ms": ms, "collectives": progs.collectives(),
-               "flash_launches_a_rank": [st["flash_launches"] for st in stats],
-               "peak_gib_a_rank": [round(st.get("peak_bytes", 0) / 2**30, 3) for st in stats],
-               "reserved_gib_a_rank": [round(st.get("reserved_bytes", 0) / 2**30, 3)
-                                       for st in stats], **extra}
-        for axis, c in row["collectives"].items():
-            c["seconds_a_call"] = c["seconds"] / max(c["calls"], 1)
+        row = mesh_call_row(what, progs, ms, **extra)
         rows.append(row)
         print("  lm_mesh " + json.dumps({**row, "card": card}), flush=True)
         return row
 
-    def timed(fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        return out, (time.perf_counter() - t) * 1e3
-
-    def diff(got, want) -> float:
-        return float((got.float().to(want.device) - want).abs().max())
-
+    timed, diff = timed_ms, max_abs_diff
     mesh = make_mesh(MESH_LM_SHAPE, ("data", "model"), device=dev, timeout=MESH_LM_TIMEOUT_S)
     summary: dict = {"card": card}
     try:
@@ -3000,33 +3009,206 @@ def lm_mesh_path(smoke: Smoke, dev) -> dict:
     return summary
 
 
+def mesh_call_row(what: str, progs, ms: float, **extra) -> dict:
+    """One mesh call's row: host ms, the collectives per axis (calls,
+    seconds, seconds a call), flash launches and card memory a rank."""
+    stats = progs.last_stats
+    row = {"what": what, "ms": ms, "collectives": progs.collectives(),
+           "flash_launches_a_rank": [st["flash_launches"] for st in stats],
+           "peak_gib_a_rank": [round(st.get("peak_bytes", 0) / 2**30, 3) for st in stats],
+           "reserved_gib_a_rank": [round(st.get("reserved_bytes", 0) / 2**30, 3)
+                                   for st in stats], **extra}
+    for c in row["collectives"].values():
+        c["seconds_a_call"] = c["seconds"] / max(c["calls"], 1)
+    return row
+
+
+def timed_ms(fn, *args):
+    """(fn(*args), its host milliseconds)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def max_abs_diff(got, want) -> float:
+    return float((got.float().to(want.device) - want).abs().max())
+
+
+def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
+    """The ssm, hybrid and encdec families on the LM's ``(data, model)``
+    mesh (phase "LM (data, model) mesh: ssm, hybrid, encdec"): one mesh of
+    :data:`MESH_LM_SHAPE` rank processes sharing the card for the three
+    :data:`MESH_FAMILIES`, a programs key each, released before the next.
+    Each family at full width and depth (bf16, flash attention where it has
+    attention): the ranks draw every weight from seed 0 and keep their
+    blocks, a prefill at its ``FAMILIES`` prompt and LM_BATCH rows (whisper
+    with the stub frontend's frames), :data:`MESH_FAMILY_GEN` decode steps
+    fed the unsharded model's greedy tokens, each held to the unsharded
+    model's logits (LM_LOGIT_ATOL); flash launches a rank a prefill as
+    :func:`flash_per_serve` counts a prefill's. Then one train step at full
+    width, depth and sequence cut as :data:`MESH_FAMILY_TRAIN` gives them
+    (reference attention, remat, AdamW as the train cell), its loss held to
+    the unsharded loss (:data:`MESH_LOSS_ATOL`). An ``lm_mesh {...}`` line a
+    family: init seconds, prefill ms, decode ms a step, train step ms, the
+    collectives of each call per axis, flash launches and peak memory a
+    rank, the logit and loss differences. The unsharded references run
+    first, their weights freed before the ranks start; the ranks close in a
+    ``finally`` and every exit code must be 0."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+
+    card = card_line()
+    prompt_of = {arch: prompt for arch, prompt, _ in FAMILIES}
+    rng = np.random.default_rng(1)
+    cells = {}
+    t0 = time.perf_counter()  # the unsharded references
+    for arch in MESH_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+        layers, seq = MESH_FAMILY_TRAIN[arch]
+        tcfg = dataclasses.replace(cfg, num_layers=layers, attn_impl="reference")
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_of[arch])))
+        extra = {k: torch.as_tensor(v).to(dev) for k, v in stub_inputs(cfg, LM_BATCH, 2).items()}
+        tbatch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, seq + 1))).to(dev),
+            **{k: torch.as_tensor(v).to(dev) for k, v in stub_inputs(cfg, TRAIN_BATCH, 3).items()}}
+        max_len = prompts.shape[1] + MESH_FAMILY_GEN
+        model = api.init_params(cfg, seed=0, device=dev)
+        ctx = Ctx(cfg)
+        want_prefill, state = api.prefill(ctx, model, prompts.to(dev), max_len, batch=extra)
+        tokens, want_decode = [want_prefill.argmax(-1)], []
+        for _ in range(MESH_FAMILY_GEN):
+            logits, state = api.decode_step(ctx, model, tokens[-1], state)
+            want_decode.append(logits.float())
+            tokens.append(logits.argmax(-1))
+        del model, state
+        model = api.init_params(tcfg, seed=0, device=dev)
+        with torch.no_grad():
+            want_loss = float(api.loss_fn(Ctx(tcfg), model, tbatch))
+        del model
+        torch.cuda.empty_cache()
+        cells[arch] = dict(cfg=cfg, tcfg=tcfg, seq=seq, prompts=prompts.to(dev), extra=extra,
+                           tbatch=tbatch, max_len=max_len, want_prefill=want_prefill.float(),
+                           tokens=tokens, want_decode=want_decode, want_loss=want_loss)
+    torch.cuda.synchronize()
+    print(f"  unsharded references ({', '.join(MESH_FAMILIES)}: prefill, {MESH_FAMILY_GEN} decode "
+          f"steps, train-cut loss): {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(MESH_LM_SHAPE, ("data", "model"), device=dev, timeout=MESH_LM_TIMEOUT_S)
+    summary: dict = {"card": card, "launch_to_ready_s": mesh.ready_seconds}
+    try:
+        print(f"  {mesh.describe()}", flush=True)
+        for arch, c in cells.items():
+            cfg, tcfg = c["cfg"], c["tcfg"]
+            shape = ShapeSpec("mesh_serve", "prefill", c["max_len"], LM_BATCH)
+            pre = build_prefill_programs(cfg, mesh, shape, key=arch)
+            dec = build_decode_programs(cfg, mesh, dataclasses.replace(shape, kind="decode"),
+                                        key=arch)
+            _, init_ms = timed_ms(pre.init, 0)
+            logits, ms = timed_ms(pre.step, {"tokens": c["prompts"], **c["extra"]})
+            prefill = mesh_call_row("prefill", pre, ms, max_abs_logit_diff=max_abs_diff(
+                logits, c["want_prefill"]))
+            flash = flash_per_serve(cfg, 1)
+            smoke.check(prefill["max_abs_logit_diff"] <= LM_LOGIT_ATOL,
+                        f"{arch}: mesh prefill logits differ by {prefill['max_abs_logit_diff']}")
+            smoke.check(prefill["flash_launches_a_rank"] == [flash] * mesh.size,
+                        f"{arch}: flash launches a rank {prefill['flash_launches_a_rank']}, "
+                        f"expected {flash}")
+            decode_ms, errs = [], []
+            for i in range(MESH_FAMILY_GEN):
+                logits, ms = timed_ms(dec.step, c["tokens"][i])
+                decode_ms.append(ms)
+                errs.append(max_abs_diff(logits, c["want_decode"][i]))
+            decode = mesh_call_row("decode step", dec, decode_ms[-1])
+            smoke.check(max(errs) <= LM_LOGIT_ATOL, f"{arch}: mesh decode logits differ by {errs}")
+            pre.release()
+            train = build_train_programs(
+                tcfg, mesh, ShapeSpec("mesh_train", "train", c["seq"], TRAIN_BATCH),
+                AdamWConfig(**TRAIN_OPT), key=f"{arch}-train")
+            _, train_init_ms = timed_ms(train.init, 0)
+            metrics, ms = timed_ms(train.step, c["tbatch"])
+            step = mesh_call_row("train step", train, ms)
+            loss_diff = abs(metrics["loss"] - c["want_loss"])
+            smoke.check(loss_diff <= MESH_LOSS_ATOL,
+                        f"{arch}: mesh step-1 loss {metrics['loss']} vs unsharded {c['want_loss']}")
+            train.release()
+            row = {"arch": arch, "family": cfg.family, "card": card,
+                   "launch_to_ready_s": mesh.ready_seconds, "init_s": init_ms / 1e3,
+                   "prompt": c["prompts"].shape[1], "batch": LM_BATCH,
+                   "prefill_ms": prefill["ms"], "decode_ms": decode_ms,
+                   "decode_ms_a_step": float(np.median(decode_ms)),
+                   "train": {"layers": tcfg.num_layers, "batch": TRAIN_BATCH, "seq": c["seq"],
+                             "microbatches": train.microbatches, "init_s": train_init_ms / 1e3},
+                   "train_step_ms": step["ms"],
+                   "collectives": {"prefill": prefill["collectives"],
+                                   "decode_step": decode["collectives"],
+                                   "train_step": step["collectives"]},
+                   "flash_launches_a_rank_a_prefill": prefill["flash_launches_a_rank"],
+                   "flash_launches_a_rank_a_decode_step": decode["flash_launches_a_rank"],
+                   "peak_gib_a_rank": {"prefill": prefill["peak_gib_a_rank"],
+                                       "decode": decode["peak_gib_a_rank"],
+                                       "train": step["peak_gib_a_rank"]},
+                   "max_abs_logit_diff": {"prefill": prefill["max_abs_logit_diff"],
+                                          "decode": max(errs)},
+                   "unsharded_max_abs_logit": float(c["want_prefill"].abs().max()),
+                   "loss": metrics["loss"], "unsharded_loss": c["want_loss"],
+                   "loss_diff": loss_diff, "grad_norm": metrics["grad_norm"]}
+            print("  lm_mesh " + json.dumps(row), flush=True)
+            summary[arch] = {k: row[k] for k in ("prefill_ms", "decode_ms_a_step",
+                                                 "train_step_ms", "loss_diff")}
+    finally:
+        mesh.close()
+        print(f"  lm mesh (families) closed: rank exit codes {mesh.exit_codes}", flush=True)
+    smoke.check(mesh.exit_codes == [0] * mesh.size, f"a rank did not exit cleanly: {mesh.exit_codes}")
+    summary["mesh_seconds"] = time.perf_counter() - t0
+    print("  lm_mesh_families_summary " + json.dumps(summary), flush=True)
+    return summary
+
+
 def flash_at_rank_shapes(smoke: Smoke, dev) -> None:
-    """flash_attn at the head counts a rank of the 2 x 2 mesh gives it
-    (llama3.2-3b: 12 q and 4 kv heads; moonshot-v1-16b-a3b: 8 and 8; the
-    padded-head path's MHA-repeated heads, 6 of them padded to 8), bf16, its
-    batch rows (2) at LM_PROMPT, against its plain version at the kernel's
-    k blocks."""
+    """flash_attn at the head counts a rank of the 2 x 2 mesh gives it, its
+    batch rows (2), bf16, against its plain version at the kernel's k
+    blocks: llama3.2-3b (12 q and 4 kv heads) and moonshot-v1-16b-a3b (8
+    and 8) at LM_PROMPT, D 128; the padded-head path's MHA-repeated heads (6
+    of them padded to 8); zamba2-2.7b's shared attention (16 and 16, D 80,
+    causal, its 2048-token prompt); whisper-small's encoder (6 and 6, D 64,
+    non-causal over 1500 frames) and cross attention (its 224-token prompt
+    over the 1500 frames)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain, flash_attn, kernel_block_k,
     )
 
     gen = torch.Generator().manual_seed(0)
     b = LM_BATCH // MESH_LM_SHAPE[0]
-    for name, hq, hkv, pad in (("llama rank", 12, 4, 0), ("moonshot rank", 8, 8, 0),
-                               ("padded heads", 4, 4, 1)):
-        q, k, v = (torch.randn((b * h, LM_PROMPT, 128), generator=gen).to(dev, torch.bfloat16)
-                   for h in (hq, hkv, hkv))
+    for name, hq, hkv, pad, sq, skv, d, causal in (
+            ("llama rank", 12, 4, 0, LM_PROMPT, LM_PROMPT, 128, True),
+            ("moonshot rank", 8, 8, 0, LM_PROMPT, LM_PROMPT, 128, True),
+            ("padded heads", 4, 4, 1, LM_PROMPT, LM_PROMPT, 128, True),
+            ("zamba2 rank", 16, 16, 0, 2048, 2048, 80, True),
+            ("whisper encoder rank", 6, 6, 0, 1500, 1500, 64, False),
+            ("whisper cross rank", 6, 6, 0, 224, 1500, 64, False)):
+        q, k, v = (torch.randn((b * h, n, d), generator=gen).to(dev, torch.bfloat16)
+                   for h, n in ((hq, sq), (hkv, skv), (hkv, skv)))
         if pad:  # the padded heads attend over zero K/V
             q[-b:], k[-b:], v[-b:] = 0, 0, 0
         before = flash_attn.launches
-        got = flash_attn(q, k, v, causal=True)
+        got = flash_attn(q, k, v, causal=causal)
         smoke.check(flash_attn.launches == before + 1, "flash_attn did not launch")
-        want = flash_attention_plain(q, k, v, causal=True,
-                                     block_k=kernel_block_k(torch.bfloat16, 128))
+        want = flash_attention_plain(q, k, v, causal=causal,
+                                     block_k=kernel_block_k(torch.bfloat16, d))
         err = float((got.float() - want.float()).abs().max())
         torch.testing.assert_close(got.float(), want.float(), **FLASH_BF16_TOL)
-        print(f"  flash at a rank's heads ({name}: {hq} q, {hkv} kv, B {b}, S {LM_PROMPT}, D 128): "
-              f"max |diff| {err:.3g} against the plain version", flush=True)
+        print(f"  flash at a rank's heads ({name}: {hq} q, {hkv} kv, B {b}, Sq {sq}, Skv {skv}, "
+              f"D {d}, {'causal' if causal else 'non-causal'}): max |diff| {err:.3g} against "
+              "the plain version", flush=True)
 
 
 def finish(smoke: Smoke) -> int:

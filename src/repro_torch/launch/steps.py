@@ -18,9 +18,11 @@ ships whole weights instead of drawing them (the CPU tests carry the JAX
 package's weights that way), and the ``gather_*`` methods bring blocks
 back whole (the host round trip of a re-mesh, ``runtime/elastic.py``).
 
-Only the transformer family (dense, MoE, VLM prefix) runs on the mesh; the
-others have their spec tables (``models/api.py::param_specs``) and
-:func:`build_programs` raises for them.
+Every family runs on the mesh: dense, MoE and VLM (``models/transformer.py``),
+SSM (``rwkv6.py``), hybrid (``zamba2.py``, ``mamba2.py``) and encoder-decoder
+(``whisper.py``, whose ``frames`` travel with the tokens, each rank keeping
+its rows). The decode state is the family's: KV caches, the RWKV state, or
+the Mamba states and attention caches.
 """
 from __future__ import annotations
 
@@ -44,9 +46,6 @@ from ..optim import AdamWConfig, AdamWState
 # per-arch microbatch counts: gradient accumulation for cells whose
 # activations exceed memory at the full per-device batch
 MICROBATCHES = {"mixtral-8x22b": 4, "zamba2-2.7b": 2}
-MESH_FAMILIES = ("dense", "moe", "vlm")
-NOT_ON_MESH = ("the ssm, hybrid and encdec families are not on the mesh yet (ROADMAP item 13: "
-               "their constraint points); they have spec tables only")
 
 
 @dataclasses.dataclass
@@ -177,11 +176,6 @@ def _batch_spec(rules: Rules, ndim: int) -> tuple:
     return rules.spec("batch", *([None] * (ndim - 1)))
 
 
-def _check(cfg: ModelConfig) -> None:
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): {NOT_ON_MESH}")
-
-
 def _state_specs(cfg: ModelConfig, rules: Rules):
     specs = api.decode_state_specs(cfg)
     return type(specs)(**{n: () if n == "length" else rules.spec(*getattr(specs, n))
@@ -193,7 +187,6 @@ def build_train_programs(cfg: ModelConfig, mesh, shape: ShapeSpec,
                          *, key: str | None = None) -> CellPrograms:
     """The train step (rules with ``seq_shard``; AdamW moments sharded as
     the weights, the step count replicated; :data:`MICROBATCHES`)."""
-    _check(cfg)
     opt_cfg = opt_cfg or AdamWConfig()
     rules = _rules(cfg, mesh, seq_shard=True)
     psh = _resolved(cfg, rules)
@@ -222,7 +215,6 @@ def build_prefill_programs(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     """The prompt pass: caches sized ``shape.seq_len`` stay in the ranks. A
     batch that ``data`` does not divide is replicated over it (GSPMD pads
     it instead; the numbers are the same)."""
-    _check(cfg)
     rules = _rules(cfg, mesh, seq_shard=True)
     if shape.global_batch % sh.axis_size(sh.mesh_sizes(mesh), rules.batch):
         rules = dataclasses.replace(rules, batch=None)
@@ -249,7 +241,6 @@ def build_decode_programs(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     """One decode step over the resident state (``long_context`` when the
     batch cannot fill ``data``: the batch replicated, the KV sequence
     sharded over ``data``)."""
-    _check(cfg)
     long_ctx = shape.global_batch < mesh.shape["data"]
     rules = _rules(cfg, mesh, long_context=long_ctx)
     if long_ctx:

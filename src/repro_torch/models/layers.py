@@ -73,6 +73,19 @@ class Ctx:
             return x
         return sh.relayout(self.mesh, x, self.rules.spec(*src), self.rules.spec(*axes))
 
+    def cols(self, x: torch.Tensor, dst: "str | None", src: "str | None") -> torch.Tensor:
+        """``x``'s last dim from the logical layout ``src`` to ``dst``, the
+        other dims as they are: a gather, a block kept, or nothing."""
+        lead = (None,) * (x.dim() - 1)
+        return self.cs(x, *lead, dst, src=(*lead, src))
+
+    def heads_layout(self) -> "str | None":
+        """The layout of a head-major dim that is split into heads of its own
+        (rwkv6's time mix, Mamba-2's inner stream): ``"heads"`` (this rank's
+        whole heads) when the rules shard 4-D heads, else None (every head,
+        the work replicated over ``model``)."""
+        return "heads" if self.axes("heads4d") else None
+
     def reduce(self, x: torch.Tensor, *axes, over: str = "model") -> torch.Tensor:
         """``x`` holds partial sums over the mesh axis ``over`` and is laid
         out as ``axes`` elsewhere: the sum, laid out as ``axes``
@@ -115,6 +128,12 @@ class Ctx:
             stored = parts[0] in keep
             setattr(node, parts[-1], t if stored else self.weight(t, specs[name]))
         return root
+
+
+def whole_positions(ctx: Ctx, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) from the residual layout to every position (the rank's
+    batch rows): a gather over the sequence axes, or nothing."""
+    return ctx.cs(x, "batch", None, None, src=RES)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -418,8 +437,9 @@ def attn_sublayer(
 
     - prefill: ``cache=None``, returns the (k, v) it computed;
     - decode: ``cache`` and ``cache_len`` given, x is the new token(s);
-    - cross-attention: ``xkv`` given, keys and values from it, no rope, no
-      causal mask and no window.
+    - cross-attention: ``xkv`` given (the encoder's states, in the residual
+      layout as x is), keys and values from it, no rope, no causal mask and
+      no window.
 
     On a mesh (module docstring) q, k and v are this rank's heads when the
     rules shard them (``heads4d``, ``kv_heads4d``), else every head, and
@@ -433,9 +453,9 @@ def attn_sublayer(
     """
     cfg = ctx.cfg
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    x = ctx.cs(x, "batch", None, None, src=RES)
+    x = whole_positions(ctx, x)
     b, s, _ = x.shape
-    src = x if xkv is None else xkv
+    src = x if xkv is None else whole_positions(ctx, xkv)
     q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
@@ -507,7 +527,7 @@ class MLP(nn.Module):
 def mlp_sublayer(ctx: Ctx, p, x: torch.Tensor) -> torch.Tensor:
     """x in the residual layout; on a mesh ``d_ff`` is this rank's block
     (column-parallel ``w_gate``/``w_up``, row-parallel ``w_down``)."""
-    x = ctx.cs(x, "batch", None, None, src=RES)
+    x = whole_positions(ctx, x)
     if ctx.cfg.act == "swiglu":
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:

@@ -10,6 +10,17 @@ one chunk from the carried state and conv tail.
 The contractions are batched matmuls over (B, H): the reference's
 ``"bti,btih,bihp->bthp"`` would form a (B, c, c, H, P) tensor (5.4 GB a
 chunk at zamba2-2.7b's widths and B = 4).
+
+On the ``(data, model)`` mesh (``models/layers.py``) ``in_proj`` holds this
+rank's block of the concatenated ``[z | xBC | dt]`` columns, a block that
+straddles their boundaries, so the projection is gathered whole before the
+split. The depthwise conv runs over this rank's block of the xBC channels,
+as ``conv_w``, ``conv_b`` and the conv tail hold them, and the conv's output
+is gathered whole (B and C are shared by every head). The scan, the D skip,
+the gate and the output norm run over this rank's heads (every head when the
+rules do not shard 4-D heads, :meth:`Ctx.heads_layout`); the norm's mean
+square is summed over ``model``, and ``out_proj``'s partial sums are
+reduced into the residual layout.
 """
 from __future__ import annotations
 
@@ -20,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import Ctx, _normal, dtype_of, remat, rmsnorm
+from .layers import RES, Ctx, _normal, dtype_of, remat, rmsnorm, whole_positions
 
 P_HEAD = 64  # head dim (P) of the inner stream
 CONV_W = 4
@@ -97,18 +108,38 @@ def _chunk(hstate, xx, bb, cc, ll, causal_incl):
     return y.permute(0, 2, 1, 3), h_new
 
 
+def _out_norm(ctx: Ctx, y: torch.Tensor, w: torch.Tensor, hs: "str | None") -> torch.Tensor:
+    """rmsnorm over the whole inner dim of y, which holds the columns of the
+    layout ``hs``: with this rank's heads the mean square is summed over
+    ``model``."""
+    if hs is None or ctx.mesh is None:
+        return rmsnorm(y, w, ctx.cfg.norm_eps)
+    y32 = y.float()
+    ms = ctx.psum((y32 * y32).sum(dim=-1, keepdim=True), hs) / dims(ctx.cfg)[0]
+    return (y32 * torch.rsqrt(ms + ctx.cfg.norm_eps)).to(y.dtype) * w
+
+
 def mamba_sublayer(ctx: Ctx, p: Mamba, x: torch.Tensor, state: MambaLayerState | None = None):
-    """x (B, S, D) -> (out (B, S, D), the state after x). The scan runs in
-    chunks of ``min(cfg.ssm_chunk, S)``; under grad each chunk is
-    checkpointed (its (c x c) decays recomputed in the backward)."""
+    """x (B, S, D) in the residual layout -> (out (B, S, D) in the residual
+    layout, the state after x). The scan runs in chunks of
+    ``min(cfg.ssm_chunk, S)``; under grad each chunk is checkpointed (its
+    (c x c) decays recomputed in the backward). On a mesh (module
+    docstring) the state holds this rank's heads and conv channels."""
     cfg = ctx.cfg
+    hs = ctx.heads_layout()
+    x = whole_positions(ctx, x)
     bsz, s, _ = x.shape
     di, n, h, dconv = dims(cfg)
-    z, xbc, dt_raw = (x @ p.in_proj).split([di, dconv, h], dim=-1)
+    z, xbc, dt_raw = ctx.cols(x @ p.in_proj, None, "heads").split([di, dconv, h], dim=-1)
+    xbc = ctx.cols(xbc, "heads", None)  # the conv's channels, as conv_w holds them
     xbc, conv_tail = _causal_conv(xbc, p.conv_w, p.conv_b, None if state is None else state.conv)
-    xi, b_in, c_in = xbc.split([di, n, n], dim=-1)
-    dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, H)
-    log_a = -dt * p.a_log.exp()  # (B, S, H) scalar decay a head
+    xi, b_in, c_in = ctx.cols(xbc, None, "heads").split([di, n, n], dim=-1)
+    xi, z, dt_raw = (ctx.cols(t, hs, None) for t in (xi, z, dt_raw))
+    dt_bias, a_log, d_skip, out_norm = (ctx.cols(t, hs, "heads") for t in (
+        p.dt_bias, p.a_log, p.d_skip, p.out_norm))
+    h = dt_raw.shape[-1]  # this rank's heads
+    dt = F.softplus(dt_raw.float() + dt_bias)  # (B, S, H)
+    log_a = -dt * a_log.exp()  # (B, S, H) scalar decay a head
 
     xh_raw = xi.reshape(bsz, s, h, P_HEAD).float()
     xh = xh_raw * dt[..., None]  # dt folded into the input
@@ -131,10 +162,10 @@ def mamba_sublayer(ctx: Ctx, p: Mamba, x: torch.Tensor, state: MambaLayerState |
         y, hstate = step(hstate, xh[:, sl], bmat[:, sl], cmat[:, sl], log_a[:, sl], causal_incl)
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, dim=1).float()[:, :s]
-    y = y + xh_raw * p.d_skip[None, None, :, None]  # D skip connection
-    y = rmsnorm(y.reshape(bsz, s, di).to(x.dtype), p.out_norm, cfg.norm_eps)
-    y = y * F.silu(z)
-    return y @ p.out_proj, MambaLayerState(h=hstate, conv=conv_tail)
+    y = y + xh_raw * d_skip[None, None, :, None]  # D skip connection
+    y = _out_norm(ctx, y.reshape(bsz, s, h * P_HEAD).to(x.dtype), out_norm, hs)
+    y = ctx.cols(y * F.silu(z), "heads", hs)
+    return ctx.reduce(y @ p.out_proj, *RES), MambaLayerState(h=hstate, conv=conv_tail)
 
 
 def mamba_param_specs() -> dict:

@@ -44,7 +44,7 @@ from ..core.strategies import Comm, MigratoryStrategy
 from ..core.util import round_up
 from . import sharding as sh
 from .config import ModelConfig
-from .layers import RES, Ctx, _normal, remat
+from .layers import RES, Ctx, _normal, remat, whole_positions
 
 
 def dispatch_from_strategy(
@@ -242,7 +242,7 @@ def moe_sublayer(
     if ctx.mesh is None:
         return _single_shard(ctx, p.router, p.w_gate, p.w_up, p.w_down, x, count=False)
     stored = {name: ctx.rules.spec(*spec) for name, spec in EXPERT_SPECS.items()}
-    x = ctx.cs(x, "batch", None, None, src=RES)
+    x = whole_positions(ctx, x)
     if ms == 1:
         ws = [sh.relayout(ctx.mesh, getattr(p, n), stored[n], (None, None, None))
               for n in ("w_gate", "w_up", "w_down")]

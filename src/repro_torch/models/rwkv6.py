@@ -8,6 +8,19 @@ head. Decode takes the exact one-token recurrence.
 
 Functions take ``(ctx, params, ...)`` with ``params`` an :class:`RWKV6`;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+
+On the ``(data, model)`` mesh (``models/layers.py``) the residual stream is
+in the residual layout between sublayers. Each sublayer gathers its input's
+positions (the token shift and the scan run along the whole sequence), and
+its weights are gathered to their layout at use. The time mix projects
+column-parallel: a rank computes its heads' columns of r, k, v, g and of the
+decay, and runs the scan over its heads (every head when the rules do not
+shard 4-D heads, :meth:`Ctx.heads_layout`). The mixes ``mu_*`` and
+``cmu_*`` are stored sharded over d but multiply the whole input, so they
+are gathered whole. ``w_o`` and the channel mix's ``cw_v`` are
+row-parallel: their partial sums are reduced into the residual layout, and
+the channel mix's gate ``sigmoid(xr @ cw_r)`` is relaid there from its
+columns before the product.
 """
 from __future__ import annotations
 
@@ -20,11 +33,16 @@ from torch import nn
 from ..device import resolve_device
 from . import sharding as sh
 from .config import ModelConfig
-from .layers import Ctx, RMSNorm, _normal, dtype_of, generator, remat, rmsnorm
+from .layers import (
+    RES, Ctx, RMSNorm, _normal, dtype_of, generator, remat, rmsnorm, whole_positions,
+)
 from .losses import chunked_cross_entropy
+from .transformer import _embed, _last_position, _unembed
 
 HEAD = 64  # rwkv6 head size M
 LORA = 32  # rank of the decay LoRA
+#: the token-shift mixes: stored sharded over d, used whole
+MIXES = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "cmu_k", "cmu_r")
 
 
 class RWKVState(NamedTuple):
@@ -95,11 +113,6 @@ def _shift(x: torch.Tensor, last: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([head, x[:, :-1]], dim=1)
 
 
-def _decay_log(p: Block, wx: torch.Tensor) -> torch.Tensor:
-    """The data-dependent log-decay exponent: base + LoRA, in float32."""
-    return p.w_decay + (wx.float() @ p.w_lora_a.float()) @ p.w_lora_b
-
-
 def _chunk(state, rr, kk, vv, ll, u, strict):
     """One chunk of the WKV recurrence. state (B, H, M, M); rr, kk, vv, ll
     (B, c, H, M) float32 (ll the log decays); u (H, M). Returns (o (B, c,
@@ -118,27 +131,66 @@ def _chunk(state, rr, kk, vv, ll, u, strict):
     return o.permute(0, 2, 1, 3), state
 
 
+def _weights(ctx: Ctx, p: Block):
+    """The block's weights in their layout at use (``p`` itself without a
+    mesh); on a mesh the mixes gathered whole, in one collective."""
+    if ctx.mesh is None:
+        return p
+    w = ctx.gathered(p, block_param_specs())
+    mixes = ctx.cols(torch.stack([getattr(w, n) for n in MIXES]), None, "heads")
+    for name, t in zip(MIXES, mixes):
+        setattr(w, name, t)
+    return w
+
+
+def _head_vectors(ctx: Ctx, p):
+    """(the bonus, ln_x's weight) in the time mix's head layout."""
+    hs = ctx.heads_layout()
+    return ctx.cols(p.u_bonus, hs, "heads"), ctx.cols(p.ln_x.w, hs, None)
+
+
+def _time_mix_out(ctx: Ctx, p, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The gated output (the time mix's head layout) through ``w_o``: on a
+    mesh this rank's rows, the partial sums reduced into the residual
+    layout (``("batch", None)`` for one token)."""
+    o = ctx.cols(o * F.silu(g), "heads", ctx.heads_layout())
+    out = o @ p.w_o
+    return ctx.reduce(out, *(RES if out.dim() == 3 else ("batch", None)))
+
+
+def _projections(ctx: Ctx, p, mix):
+    """r, k, v, g (each ``mix(mu) @ w``) and the data-dependent log-decay
+    exponent (base + LoRA, float32), in the time mix's head layout: the
+    columns this rank projects, gathered when every head is here."""
+    hs = ctx.heads_layout()
+    r, k, v, g = (ctx.cols(mix(mu) @ w, hs, "heads") for mu, w in (
+        (p.mu_r, p.w_r), (p.mu_k, p.w_k), (p.mu_v, p.w_v), (p.mu_g, p.w_g)))
+    lora = (mix(p.mu_w).float() @ p.w_lora_a.float()) @ ctx.cols(p.w_lora_b, hs, "heads")
+    return r, k, v, g, ctx.cols(p.w_decay, hs, "heads") + lora
+
+
 def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
                       tm_last: torch.Tensor | None):
-    """x (B, S, D) -> (out (B, S, D), the final state (B, H, M, M), x's last
-    row). The sequence is zero-padded to a chunk multiple: r, k and v pads
-    add nothing and log-decay pads of 0 leave the state as it is. Under
-    grad each chunk is checkpointed."""
+    """x (B, S, D), every position -> (out (B, S, D) in the residual layout,
+    the final state (B, H, M, M) of the local heads, x's last row). The
+    sequence is zero-padded to a chunk multiple: r, k and v pads add nothing
+    and log-decay pads of 0 leave the state as it is. Under grad each chunk
+    is checkpointed."""
     cfg = ctx.cfg
-    b, s, d = x.shape
-    h = d // HEAD
+    b, s, _ = x.shape
     c = min(cfg.ssm_chunk, s)
     xs = _shift(x, tm_last)
 
     def mix(mu):
         return x * mu + xs * (1 - mu)
 
-    r = (mix(p.mu_r) @ p.w_r).reshape(b, s, h, HEAD)
-    k = (mix(p.mu_k) @ p.w_k).reshape(b, s, h, HEAD)
-    v = (mix(p.mu_v) @ p.w_v).reshape(b, s, h, HEAD)
-    g = mix(p.mu_g) @ p.w_g
-    log_w = -_decay_log(p, mix(p.mu_w)).reshape(b, s, h, HEAD).exp()  # in (-inf, 0)
-    u = p.u_bonus.reshape(h, HEAD)
+    u, ln_x = _head_vectors(ctx, p)
+    r, k, v, g, w_log = _projections(ctx, p, mix)
+    d = r.shape[-1]  # the local heads' width
+    h = d // HEAD
+    r, k, v = (t.reshape(b, s, h, HEAD) for t in (r, k, v))
+    log_w = -w_log.reshape(b, s, h, HEAD).exp()  # in (-inf, 0)
+    u = u.reshape(h, HEAD)
 
     s_pad = -(-s // c) * c
     r, k, v, log_w = (F.pad(t.float(), (0, 0, 0, 0, 0, s_pad - s)) for t in (r, k, v, log_w))
@@ -152,57 +204,61 @@ def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
     o = torch.cat(outs, dim=1).float()[:, :s]
     # per-head group norm, gate, output projection
     o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x.device), cfg.norm_eps)
-    o = (o.reshape(b, s, d) * p.ln_x.w).to(x.dtype)
-    o = o * F.silu(g)
-    return o @ p.w_o, state, x[:, -1, :]
+    o = (o.reshape(b, s, d) * ln_x).to(x.dtype)
+    return _time_mix_out(ctx, p, o, g), state, x[:, -1, :]
 
 
 def _time_mix_step(ctx: Ctx, p: Block, x1: torch.Tensor, s0: torch.Tensor, tm_last: torch.Tensor):
-    """The exact one-token recurrence (decode). x1 (B, D)."""
+    """The exact one-token recurrence (decode). x1 (B, D) whole; s0 the
+    local heads' state."""
     cfg = ctx.cfg
-    b, d = x1.shape
-    h = d // HEAD
+    b = x1.shape[0]
     xs = tm_last.to(x1.dtype)
 
     def mix(mu):
         return x1 * mu + xs * (1 - mu)
 
-    r = (mix(p.mu_r) @ p.w_r).reshape(b, h, HEAD).float()
-    k = (mix(p.mu_k) @ p.w_k).reshape(b, h, HEAD).float()
-    v = (mix(p.mu_v) @ p.w_v).reshape(b, h, HEAD).float()
-    g = mix(p.mu_g) @ p.w_g
-    w = (-_decay_log(p, mix(p.mu_w)).reshape(b, h, HEAD).exp()).exp()
-    u = p.u_bonus.reshape(h, HEAD)
+    u, ln_x = _head_vectors(ctx, p)
+    r, k, v, g, w_log = _projections(ctx, p, mix)
+    d = r.shape[-1]
+    h = d // HEAD
+    r, k, v = (t.reshape(b, h, HEAD).float() for t in (r, k, v))
+    w = (-w_log.reshape(b, h, HEAD).exp()).exp()
+    u = u.reshape(h, HEAD)
     s0 = s0.float()
     kv = k[..., :, None] * v[..., None, :]  # (B, H, M, M)
     o = torch.matmul(r[:, :, None, :], s0 + u[None, :, :, None] * kv)[:, :, 0]  # (B, H, M)
     s_new = s0 * w[..., None] + kv
     o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x1.device), cfg.norm_eps)
-    o = (o.reshape(b, d) * p.ln_x.w).to(x1.dtype)
-    o = o * F.silu(g)
-    return o @ p.w_o, s_new, x1
+    o = (o.reshape(b, d) * ln_x).to(x1.dtype)
+    return _time_mix_out(ctx, p, o, g), s_new, x1
 
 
 def _channel_mix(ctx: Ctx, p: Block, x: torch.Tensor, cm_last: torch.Tensor | None):
-    """Channel-mix of x (B, S, D), shifted after ``cm_last``, or of one
-    token x (B, D) after ``cm_last`` (decode). Returns (out, x's last row)."""
-    del ctx
+    """Channel-mix of x (B, S, D), every position, shifted after
+    ``cm_last``, or of one token x (B, D) after ``cm_last`` (decode).
+    Returns (out in the residual layout, x's last row). On a mesh ``cw_k``
+    holds this rank's ``d_ff`` columns and ``cw_v`` its rows: the partial
+    sums are reduced into the residual layout, and the gate meets them
+    there."""
     xs = _shift(x, cm_last) if x.dim() == 3 else cm_last.to(x.dtype)
     xk = x * p.cmu_k + xs * (1 - p.cmu_k)
     xr = x * p.cmu_r + xs * (1 - p.cmu_r)
     k = F.relu(xk @ p.cw_k).square()
-    out = (k @ p.cw_v) * torch.sigmoid(xr @ p.cw_r)
+    res, cols = (RES, ("batch", None, "heads")) if x.dim() == 3 else (("batch", None), ("batch", "heads"))
+    out = ctx.reduce(k @ p.cw_v, *res) * ctx.cs(torch.sigmoid(xr @ p.cw_r), *res, src=cols)
     return out, (x[:, -1, :] if x.dim() == 3 else x)
 
 
 def _block(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor):
     """One layer over a whole sequence from state ``s0`` (no token carried
-    in). Returns (x, (the wkv state, time-mix last input, channel-mix last
-    input))."""
+    in), x in the residual layout. Returns (x, (the wkv state, time-mix last
+    input, channel-mix last input))."""
     eps = ctx.cfg.norm_eps
-    h, s_new, tm_new = _time_mix_chunked(ctx, p, rmsnorm(x, p.ln1.w, eps), s0, None)
+    p = _weights(ctx, p)
+    h, s_new, tm_new = _time_mix_chunked(ctx, p, whole_positions(ctx, rmsnorm(x, p.ln1.w, eps)), s0, None)
     x = x + h
-    h2, cm_new = _channel_mix(ctx, p, rmsnorm(x, p.ln2.w, eps), None)
+    h2, cm_new = _channel_mix(ctx, p, whole_positions(ctx, rmsnorm(x, p.ln2.w, eps)), None)
     return x + h2, (s_new, tm_new, cm_new)
 
 
@@ -210,16 +266,19 @@ def _block_out(ctx: Ctx, p: Block, x, s0):
     return _block(ctx, p, x, s0)[0]
 
 
-def _zero_state(cfg: ModelConfig, b: int, device) -> torch.Tensor:
-    h = cfg.d_model // HEAD
+def _zero_state(ctx: Ctx, b: int, device) -> torch.Tensor:
+    """The zero wkv state of ``b`` rows over the local heads."""
+    h = ctx.cfg.d_model // HEAD
+    if ctx.heads_layout():
+        h //= ctx.size("model")
     return torch.zeros((b, h, HEAD, HEAD), dtype=torch.float32, device=device)
 
 
 def backbone(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
-    """Embed + layers + final norm; each layer checkpointed under grad when
-    ``cfg.remat``."""
-    x = params.embed[tokens]
-    s0 = _zero_state(ctx.cfg, tokens.shape[0], x.device)
+    """Embed + layers + final norm, in the residual layout; each layer
+    checkpointed under grad when ``cfg.remat``."""
+    x = _embed(ctx, params, tokens, None)
+    s0 = _zero_state(ctx, tokens.shape[0], x.device)
     run = remat(_block_out) if ctx.cfg.remat and torch.is_grad_enabled() else _block_out
     for blk in params.blocks:
         x = run(ctx, blk, x, s0)
@@ -227,14 +286,16 @@ def backbone(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
-    """Scoring forward: (B, S) tokens -> (B, S, V) logits."""
-    return backbone(ctx, params, tokens) @ params.lm_head
+    """Scoring forward: (B, S) tokens -> (B, S, V) logits (on a mesh the
+    rank's rows and vocab block)."""
+    return _unembed(ctx, params, whole_positions(ctx, backbone(ctx, params, tokens)))
 
 
 def loss_fn(ctx: Ctx, params: RWKV6, batch: dict) -> torch.Tensor:
     """Next-token CE of ``batch["tokens"]`` (B, S + 1)."""
     tokens = batch["tokens"].long()
-    return chunked_cross_entropy(ctx, backbone(ctx, params, tokens[:, :-1]), params.lm_head,
+    x = whole_positions(ctx, backbone(ctx, params, tokens[:, :-1]))
+    return chunked_cross_entropy(ctx, x, ctx.weight(params.lm_head, ("fsdp", "vocab")),
                                  tokens[:, 1:])
 
 
@@ -254,52 +315,56 @@ def prefill(ctx: Ctx, params: RWKV6, tokens: torch.Tensor, max_len: int = 0):
     """Absorb the prompt into the recurrent state (an SSM's cache; ``max_len``
     is not needed). Returns (last-token logits (B, 1, V), state)."""
     del max_len
-    x = params.embed[tokens]
-    s0 = _zero_state(ctx.cfg, tokens.shape[0], x.device)
+    x = _embed(ctx, params, tokens, None)
+    s0 = _zero_state(ctx, tokens.shape[0], x.device)
     states = []
     for blk in params.blocks:
         x, st = _block(ctx, blk, x, s0)
         states.append(st)
-    x = rmsnorm(x[:, -1:], params.final_norm.w, ctx.cfg.norm_eps)
-    return x @ params.lm_head, RWKVState(*(torch.stack(f) for f in zip(*states)))
+    x = rmsnorm(_last_position(ctx, x), params.final_norm.w, ctx.cfg.norm_eps)
+    return _unembed(ctx, params, x), RWKVState(*(torch.stack(f) for f in zip(*states)))
 
 
 @torch.inference_mode()
 def decode_step(ctx: Ctx, params: RWKV6, token: torch.Tensor, state: RWKVState):
     """(B, 1) token -> (B, 1, V) logits and the state advanced one token."""
     eps = ctx.cfg.norm_eps
-    x = params.embed[token[:, 0]]  # (B, D)
+    x = _embed(ctx, params, token, None)[:, 0]  # (B, D)
     states = []
     for i, blk in enumerate(params.blocks):
+        blk = _weights(ctx, blk)
         h, s_new, tm_new = _time_mix_step(ctx, blk, rmsnorm(x, blk.ln1.w, eps), state.s[i], state.tm_x[i])
         x = x + h
         h2, cm_new = _channel_mix(ctx, blk, rmsnorm(x, blk.ln2.w, eps), state.cm_x[i])
         x = x + h2
         states.append((s_new, tm_new, cm_new))
     x = rmsnorm(x, params.final_norm.w, eps)
-    return (x @ params.lm_head)[:, None, :], RWKVState(*(torch.stack(f) for f in zip(*states)))
+    return _unembed(ctx, params, x)[:, None, :], RWKVState(*(torch.stack(f) for f in zip(*states)))
 
 
-# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+# -- sharding specs (the JAX package's tables) -------------------------------------
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """Logical specs keyed by the parameter names (one tensor a layer)."""
+def block_param_specs() -> dict:
+    """One layer's logical specs, keyed by the layer-relative names (the
+    JAX package's ``blocks`` subtree without the layer dim)."""
     vec = ("heads",)  # (d,) vectors shard with the head dim
-    blocks = {
-        "ln1": {"w": (None,)}, "ln2": {"w": (None,)},
-        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_w": vec, "mu_g": vec,
+    return {
+        "ln1.w": (None,), "ln2.w": (None,), **{name: vec for name in MIXES},
         "w_r": ("fsdp", "heads"), "w_k": ("fsdp", "heads"),
         "w_v": ("fsdp", "heads"), "w_g": ("fsdp", "heads"),
         "w_o": ("heads", "fsdp"),
         "w_decay": vec, "w_lora_a": ("fsdp", None), "w_lora_b": (None, "heads"),
-        "u_bonus": vec, "ln_x": {"w": (None,)},
-        "cmu_k": vec, "cmu_r": vec,
+        "u_bonus": vec, "ln_x.w": (None,),
         "cw_k": ("fsdp", "d_ff"), "cw_v": ("d_ff", "fsdp"),
         "cw_r": ("fsdp", "heads"),
     }
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical specs keyed by the parameter names (one tensor a layer)."""
     return sh.expand_layers(
-        {"embed": ("vocab", "fsdp"), "blocks": blocks, "final_norm": {"w": (None,)},
+        {"embed": ("vocab", "fsdp"), "blocks": block_param_specs(), "final_norm": {"w": (None,)},
          "lm_head": ("fsdp", "vocab")},
         {"blocks": cfg.num_layers})
 

@@ -28,7 +28,7 @@ from . import sharding as sh
 from .config import ModelConfig
 from .layers import (
     MLP, RES, Attention, Ctx, RMSNorm, _normal, _write_seq, attn_sublayer, dtype_of, generator,
-    mlp_sublayer, norm, remat,
+    mlp_sublayer, norm, remat, whole_positions,
 )
 from .losses import chunked_cross_entropy
 from .moe import EXPERT_SPECS, MoE, moe_sublayer
@@ -193,7 +193,7 @@ def forward(ctx: Ctx, params: Transformer, tokens: torch.Tensor,
             extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Scoring forward: (B, S) tokens -> (B, [Np +] S, V) logits (on a mesh
     every position, the rank's batch rows and vocab block)."""
-    x = ctx.cs(backbone(ctx, params, tokens, extra_embeds), "batch", None, None, src=RES)
+    x = whole_positions(ctx, backbone(ctx, params, tokens, extra_embeds))
     return _unembed(ctx, params, x)
 
 
@@ -203,7 +203,7 @@ def loss_fn(ctx: Ctx, params: Transformer, batch: dict) -> torch.Tensor:
     ``batch["patches"]`` (vlm) the patch positions carry no loss."""
     tokens = batch["tokens"].long()
     patches = batch.get("patches")
-    x = ctx.cs(backbone(ctx, params, tokens[:, :-1], patches), "batch", None, None, src=RES)
+    x = whole_positions(ctx, backbone(ctx, params, tokens[:, :-1], patches))
     if patches is not None:
         x = x[:, patches.shape[1]:]
     return chunked_cross_entropy(ctx, x, ctx.weight(params.lm_head, ("fsdp", "vocab")),
@@ -271,6 +271,12 @@ def _cache_block(ctx: Ctx, s_max: int) -> tuple[int, int]:
     return s_max // n, (ctx.index(seq) * (s_max // n) if seq else 0)
 
 
+def _local_kv_heads(ctx: Ctx) -> int:
+    """The kv heads a rank's cache holds: its block when ``kv_heads4d``
+    shards, else all."""
+    return ctx.cfg.num_kv_heads // (ctx.size("model") if ctx.axes("kv_heads4d") else 1)
+
+
 @torch.inference_mode()
 def prefill(ctx: Ctx, params: Transformer, tokens: torch.Tensor, max_len: int,
             extra_embeds: torch.Tensor | None = None):
@@ -281,8 +287,7 @@ def prefill(ctx: Ctx, params: Transformer, tokens: torch.Tensor, max_len: int,
     b = x.shape[0]
     s = tokens.shape[1] + (0 if extra_embeds is None else extra_embeds.shape[1])
     n, lo = _cache_block(ctx, max(max_len, s))
-    hkv = ctx.cfg.num_kv_heads // (ctx.size("model") if ctx.axes("kv_heads4d") else 1)
-    caches = init_caches(ctx.cfg, b, n, device=tokens.device, kv_heads=hkv)
+    caches = init_caches(ctx.cfg, b, n, device=tokens.device, kv_heads=_local_kv_heads(ctx))
     for i, blk in enumerate(params.blocks):
         x, (k, v) = _block(ctx, blk, x)
         _write_seq(caches.k[i], k, 0, lo)

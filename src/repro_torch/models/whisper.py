@@ -11,6 +11,15 @@ decoder layer's cross K/V once; ``decode_step`` reads them through
 :func:`_cross_from_cache`, which calls ``_attend`` without a valid length,
 so under ``attn_impl="flash"`` every decode step launches the flash kernel
 once a layer (q of one row over all the frames), as the reference does.
+
+On the ``(data, model)`` mesh (``models/layers.py``) the encoder's and the
+decoder's streams are both in the residual layout, each layer's weights are
+gathered to their layout at use, and attention runs over this rank's heads
+(the encoder's non-causal). The cross-attention gathers the encoder's
+states' positions before its keys and values. The vocab (51,865) does not
+divide ``model``, so the rules replicate the embedding, ``lm_head`` and the
+loss over it. The cross caches hold this rank's rows and kv heads over
+every frame.
 """
 from __future__ import annotations
 
@@ -23,10 +32,12 @@ from ..device import resolve_device
 from . import sharding as sh
 from .config import ModelConfig
 from .layers import (
-    MLP, Attention, Ctx, RMSNorm, _attend, _normal, attn_sublayer, dtype_of, generator,
-    mlp_sublayer, norm, remat, sinusoidal,
+    MLP, RES, Attention, Ctx, RMSNorm, _attend, _kv_for_local_heads, _normal, _split_heads,
+    _wo_columns, _write_seq, attn_sublayer, dtype_of, generator, mlp_sublayer, norm, remat,
+    sinusoidal, whole_positions,
 )
 from .losses import chunked_cross_entropy
+from .transformer import _cache_block, _embed, _last_position, _local_kv_heads, _unembed
 
 
 class WhisperCaches(NamedTuple):
@@ -82,6 +93,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Whisper:
 
 
 def _enc_block(ctx: Ctx, p: EncBlock, x):
+    p = ctx.gathered(p, enc_block_specs())
     h, _ = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), causal=False, use_rope=False)
     x = x + h
     return x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x))
@@ -92,10 +104,20 @@ def _layers(ctx: Ctx, fn):
     return remat(fn) if ctx.cfg.remat and torch.is_grad_enabled() else fn
 
 
+def _positions(ctx: Ctx, b: int, s: int, dtype, device, start: int = 0) -> torch.Tensor:
+    """The sinusoidal positions ``start`` .. of ``s`` tokens for ``b`` rows,
+    (b, s, D) in the residual layout (a view)."""
+    pe = sinusoidal(s, ctx.cfg.d_model, dtype, device, start=start)
+    return ctx.cs(pe.expand(b, -1, -1), *RES, src=("batch", None, None))
+
+
 def encode(ctx: Ctx, params: Whisper, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, F, D) stub embeddings -> the encoder's states."""
+    """frames (B, F, D) stub embeddings -> the encoder's states, in the
+    residual layout."""
     dt = dtype_of(ctx.cfg)
-    x = frames.to(dt) + sinusoidal(frames.shape[1], ctx.cfg.d_model, dt, frames.device)
+    b, f, _ = frames.shape
+    x = ctx.cs(frames.to(dt), *RES, src=("batch", None, None)) + _positions(ctx, b, f, dt,
+                                                                           frames.device)
     run = _layers(ctx, _enc_block)
     for blk in params.enc_blocks:
         x = run(ctx, blk, x)
@@ -106,6 +128,7 @@ def _dec_block(ctx: Ctx, p: DecBlock, x, enc):
     """A decoder layer over a whole sequence (training, prefill), its
     cross-attention against ``enc``. Returns (x, its self (k, v), its cross
     (k, v))."""
+    p = ctx.gathered(p, dec_block_specs())
     h, kv = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), use_rope=False)
     x = x + h
     h, xkv = attn_sublayer(ctx, p.xattn, norm(ctx, p.ln_x, x), xkv=enc, use_rope=False)
@@ -117,23 +140,24 @@ def _dec_block_out(ctx: Ctx, p: DecBlock, x, enc):
     return _dec_block(ctx, p, x, enc)[0]
 
 
-def _embed_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed[tokens]
-    return x + sinusoidal(tokens.shape[1], ctx.cfg.d_model, x.dtype, x.device)
+def _embed_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """The tokens' embeddings and positions, in the residual layout."""
+    x = _embed(ctx, params, tokens, None)
+    return x + _positions(ctx, x.shape[0], tokens.shape[1], x.dtype, x.device, start)
 
 
 def _decoder(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder pass to the final norm."""
+    """Teacher-forced decoder pass to the final norm, every position."""
     x = _embed_tokens(ctx, params, tokens)
     run = _layers(ctx, _dec_block_out)
     for blk in params.dec_blocks:
         x = run(ctx, blk, x, enc)
-    return norm(ctx, params.final_norm, x)
+    return whole_positions(ctx, norm(ctx, params.final_norm, x))
 
 
 def decode_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder pass: (B, S) tokens -> (B, S, V) logits."""
-    return _decoder(ctx, params, tokens, enc) @ params.lm_head
+    return _unembed(ctx, params, _decoder(ctx, params, tokens, enc))
 
 
 def forward(ctx: Ctx, params: Whisper, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
@@ -145,13 +169,18 @@ def loss_fn(ctx: Ctx, params: Whisper, batch: dict) -> torch.Tensor:
     ``batch["frames"]``."""
     tokens = batch["tokens"].long()
     x = _decoder(ctx, params, tokens[:, :-1], encode(ctx, params, batch["frames"]))
-    return chunked_cross_entropy(ctx, x, params.lm_head, tokens[:, 1:])
+    return chunked_cross_entropy(ctx, x, ctx.weight(params.lm_head, ("fsdp", "vocab")),
+                                 tokens[:, 1:])
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> WhisperCaches:
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+                kv_heads: "int | None" = None) -> WhisperCaches:
+    """Zero caches; on a mesh the rank's block (its batch rows, positions
+    and ``kv_heads``)."""
     dev, dt = resolve_device(device), dtype_of(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.hd)
-    xshape = (cfg.num_layers, batch, cfg.encoder_frames, cfg.num_kv_heads, cfg.hd)
+    hkv = kv_heads or cfg.num_kv_heads
+    shape = (cfg.num_layers, batch, max_len, hkv, cfg.hd)
+    xshape = (cfg.num_layers, batch, cfg.encoder_frames, hkv, cfg.hd)
     return WhisperCaches(
         self_k=torch.zeros(shape, dtype=dt, device=dev), self_v=torch.zeros(shape, dtype=dt, device=dev),
         cross_k=torch.zeros(xshape, dtype=dt, device=dev), cross_v=torch.zeros(xshape, dtype=dt, device=dev),
@@ -162,30 +191,33 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Wh
 @torch.inference_mode()
 def prefill(ctx: Ctx, params: Whisper, tokens: torch.Tensor, max_len: int, frames: torch.Tensor):
     """Encode the frames and run the prompt; the self caches (sized
-    ``max_len``) hold the prompt's keys and values, the cross caches every
-    layer's keys and values of the encoder's states. Returns (last-token
-    logits (B, 1, V), caches)."""
+    ``max_len`` or the prompt's length if longer) hold the prompt's keys and
+    values, the cross caches every layer's keys and values of the encoder's
+    states. Returns (last-token logits (B, 1, V), caches)."""
     enc = encode(ctx, params, frames)
     b, s = tokens.shape
-    caches = init_caches(ctx.cfg, b, max_len, device=tokens.device)
+    n, lo = _cache_block(ctx, max(max_len, s))
+    caches = init_caches(ctx.cfg, b, n, device=tokens.device, kv_heads=_local_kv_heads(ctx))
     x = _embed_tokens(ctx, params, tokens)
     for i, blk in enumerate(params.dec_blocks):
         x, (k, v), (xk, xv) = _dec_block(ctx, blk, x, enc)
-        caches.self_k[i, :, :s] = k
-        caches.self_v[i, :, :s] = v
+        _write_seq(caches.self_k[i], k, 0, lo)
+        _write_seq(caches.self_v[i], v, 0, lo)
         caches.cross_k[i] = xk
         caches.cross_v[i] = xv
-    x = norm(ctx, params.final_norm, x[:, -1:])
-    return x @ params.lm_head, caches._replace(length=s)
+    x = norm(ctx, params.final_norm, _last_position(ctx, x))
+    return _unembed(ctx, params, x), caches._replace(length=s)
 
 
 def _cross_from_cache(ctx: Ctx, p: Attention, x, xk, xv):
-    """Cross-attention over cached K/V: only the q and o projections run."""
+    """Cross-attention over cached K/V (this rank's kv heads): only the q
+    and o projections run. x and the result in the residual layout."""
     cfg = ctx.cfg
-    b, s, _ = x.shape
-    q = (x @ p.wq).reshape(b, s, cfg.num_heads, cfg.hd)
-    o = _attend(ctx, q, xk, xv, causal=False, window=None)
-    return o.reshape(b, s, cfg.num_heads * cfg.hd) @ p.wo
+    x = whole_positions(ctx, x)
+    q = _split_heads(ctx, x @ p.wq, cfg.num_heads, "heads4d")
+    kl, vl = _kv_for_local_heads(ctx, q, xk, xv, cfg.num_heads, cfg.num_kv_heads)
+    o = _attend(ctx, q, kl, vl, causal=False, window=None)
+    return ctx.reduce(_wo_columns(ctx, o, cfg.num_heads) @ p.wo, *RES)
 
 
 @torch.inference_mode()
@@ -193,9 +225,9 @@ def decode_step(ctx: Ctx, params: Whisper, token: torch.Tensor, caches: WhisperC
     """One decoder step: (B, 1) token -> (B, 1, V) logits; the new self
     entries are written into ``caches``' own tensors."""
     ln = caches.length
-    x = params.embed[token]
-    x = x + sinusoidal(1, ctx.cfg.d_model, x.dtype, x.device, start=ln)
+    x = _embed_tokens(ctx, params, token, start=ln)
     for i, blk in enumerate(params.dec_blocks):
+        blk = ctx.gathered(blk, dec_block_specs())
         h, _ = attn_sublayer(ctx, blk.attn, norm(ctx, blk.ln1, x), cache=(caches.self_k[i], caches.self_v[i]),
                              cache_len=ln, use_rope=False)
         x = x + h
@@ -203,30 +235,34 @@ def decode_step(ctx: Ctx, params: Whisper, token: torch.Tensor, caches: WhisperC
                                   caches.cross_v[i])
         x = x + mlp_sublayer(ctx, blk.mlp, norm(ctx, blk.ln2, x))
     x = norm(ctx, params.final_norm, x)
-    return x @ params.lm_head, caches._replace(length=ln + token.shape[1])
+    return _unembed(ctx, params, x), caches._replace(length=ln + token.shape[1])
 
 
-# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+# -- sharding specs (the JAX package's tables) -------------------------------------
+
+
+def _attn_specs(prefix: str) -> dict:
+    return {f"{prefix}.wq": ("fsdp", "heads"), f"{prefix}.wk": ("fsdp", "heads"),
+            f"{prefix}.wv": ("fsdp", "heads"), f"{prefix}.wo": ("heads", "fsdp")}
+
+
+def enc_block_specs() -> dict:
+    """An encoder layer's logical specs, keyed by the layer-relative names."""
+    return {**{f"{ln}.{n}": (None,) for ln in ("ln1", "ln2") for n in ("w", "b")},
+            **_attn_specs("attn"), "mlp.w_up": ("fsdp", "d_ff"), "mlp.w_down": ("d_ff", "fsdp")}
+
+
+def dec_block_specs() -> dict:
+    """A decoder layer's: the encoder layer's and the cross-attention's."""
+    return {**enc_block_specs(), "ln_x.w": (None,), "ln_x.b": (None,), **_attn_specs("xattn")}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Logical specs keyed by the parameter names (one tensor a layer)."""
-    def nrm():
-        return {"w": (None,), "b": (None,)}
-
-    def attn():
-        return {"wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
-                "wv": ("fsdp", "heads"), "wo": ("heads", "fsdp")}
-
-    def mlp():
-        return {"w_up": ("fsdp", "d_ff"), "w_down": ("d_ff", "fsdp")}
-
-    enc = {"ln1": nrm(), "ln2": nrm(), "attn": attn(), "mlp": mlp()}
-    dec = {"ln1": nrm(), "ln2": nrm(), "ln_x": nrm(), "attn": attn(), "xattn": attn(),
-           "mlp": mlp()}
+    nrm = {"w": (None,), "b": (None,)}
     return sh.expand_layers(
-        {"embed": ("vocab", "fsdp"), "enc_blocks": enc, "enc_norm": nrm(), "dec_blocks": dec,
-         "final_norm": nrm(), "lm_head": ("fsdp", "vocab")},
+        {"embed": ("vocab", "fsdp"), "enc_blocks": enc_block_specs(), "enc_norm": nrm,
+         "dec_blocks": dec_block_specs(), "final_norm": nrm, "lm_head": ("fsdp", "vocab")},
         {"enc_blocks": cfg.encoder_layers, "dec_blocks": cfg.num_layers})
 
 

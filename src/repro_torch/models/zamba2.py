@@ -5,6 +5,14 @@ point; each point keeps its own KV cache.
 
 Functions take ``(ctx, params, ...)`` with ``params`` a :class:`Zamba2`;
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+
+On the ``(data, model)`` mesh (``models/layers.py``) the embedding and
+``lm_head`` are vocab-parallel as the transformer's, each Mamba layer's
+weights are gathered to their layout at use (``models/mamba2.py`` has its
+mesh branch), and the shared block's once a forward, then read at every
+application point (their gradients summed over the points before one
+reduce-scatter). Its attention and MLP are the transformer's sublayers; each
+point's cache holds this rank's rows, positions and kv heads.
 """
 from __future__ import annotations
 
@@ -14,16 +22,17 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from . import sharding as sh
 from .config import ModelConfig
 from .layers import (
-    MLP, Attention, Ctx, RMSNorm, _normal, attn_sublayer, dtype_of, generator, mlp_sublayer, norm,
-    remat,
+    MLP, Attention, Ctx, RMSNorm, _normal, _write_seq, attn_sublayer, dtype_of, generator,
+    mlp_sublayer, norm, remat, whole_positions,
 )
 from .losses import chunked_cross_entropy
-from . import sharding as sh
 from .mamba2 import (
     CONV_W, P_HEAD, Mamba, MambaLayerState, dims, mamba_param_specs, mamba_sublayer,
 )
+from .transformer import _cache_block, _embed, _last_position, _local_kv_heads, _unembed
 
 
 class ZambaCaches(NamedTuple):
@@ -85,11 +94,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Zamba2:
 
 
 def _mamba_layer(ctx: Ctx, blk: MambaBlock, x, state):
+    blk = ctx.gathered(blk, mamba_block_specs())
     out, new_state = mamba_sublayer(ctx, blk.mamba, norm(ctx, blk.ln, x), state)
     return x + out, new_state
 
 
-def _shared_attn_block(ctx: Ctx, p: SharedAttn, x, *, pos_offset=0, cache=None, cache_len=None):
+def _shared_attn_block(ctx: Ctx, p, x, *, pos_offset=0, cache=None, cache_len=None):
     h, new_cache = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), pos_offset=pos_offset,
                                  cache=cache, cache_len=cache_len)
     x = x + h
@@ -97,14 +107,15 @@ def _shared_attn_block(ctx: Ctx, p: SharedAttn, x, *, pos_offset=0, cache=None, 
 
 
 def _backbone(ctx: Ctx, params: Zamba2, x: torch.Tensor, caches: ZambaCaches | None):
-    """The groups of Mamba layers, each followed by the shared block.
-    Without caches (training, prefill) the attention takes the whole
-    sequence and returns its (k, v); with caches (decode) it writes the new
-    entries into each point's cache in place. Returns (x, (the Mamba
-    states stacked (L, ...), the attention (k, v) a point))."""
+    """The groups of Mamba layers, each followed by the shared block; x in
+    the residual layout. Without caches (training, prefill) the attention
+    takes the whole sequence and returns its (k, v); with caches (decode) it
+    writes the new entries into each point's cache in place. Returns (x,
+    (the Mamba states stacked (L, ...), the attention (k, v) a point))."""
     g, per = _groups(ctx.cfg)
     run = remat(_mamba_layer) if ctx.cfg.remat and caches is None and torch.is_grad_enabled() \
         else _mamba_layer
+    shared = ctx.gathered(params.shared_attn, shared_attn_specs())
     hs, convs, kvs = [], [], []
     for gi in range(g):
         for li in range(gi * per, (gi + 1) * per):
@@ -113,9 +124,9 @@ def _backbone(ctx: Ctx, params: Zamba2, x: torch.Tensor, caches: ZambaCaches | N
             hs.append(st.h)
             convs.append(st.conv)
         if caches is None:
-            x, kv = _shared_attn_block(ctx, params.shared_attn, x)
+            x, kv = _shared_attn_block(ctx, shared, x)
         else:
-            x, kv = _shared_attn_block(ctx, params.shared_attn, x, pos_offset=caches.length,
+            x, kv = _shared_attn_block(ctx, shared, x, pos_offset=caches.length,
                                        cache=(caches.attn_k[gi], caches.attn_v[gi]),
                                        cache_len=caches.length)
         kvs.append(kv)
@@ -123,16 +134,18 @@ def _backbone(ctx: Ctx, params: Zamba2, x: torch.Tensor, caches: ZambaCaches | N
 
 
 def forward(ctx: Ctx, params: Zamba2, tokens: torch.Tensor) -> torch.Tensor:
-    """Scoring forward: (B, S) tokens -> (B, S, V) logits."""
-    x, _ = _backbone(ctx, params, params.embed[tokens], None)
-    return norm(ctx, params.final_norm, x) @ params.lm_head
+    """Scoring forward: (B, S) tokens -> (B, S, V) logits (on a mesh the
+    rank's rows and vocab block)."""
+    x, _ = _backbone(ctx, params, _embed(ctx, params, tokens, None), None)
+    return _unembed(ctx, params, whole_positions(ctx, norm(ctx, params.final_norm, x)))
 
 
 def loss_fn(ctx: Ctx, params: Zamba2, batch: dict) -> torch.Tensor:
     """Next-token CE of ``batch["tokens"]`` (B, S + 1)."""
     tokens = batch["tokens"].long()
-    x, _ = _backbone(ctx, params, params.embed[tokens[:, :-1]], None)
-    return chunked_cross_entropy(ctx, norm(ctx, params.final_norm, x), params.lm_head, tokens[:, 1:])
+    x, _ = _backbone(ctx, params, _embed(ctx, params, tokens[:, :-1], None), None)
+    return chunked_cross_entropy(ctx, whole_positions(ctx, norm(ctx, params.final_norm, x)),
+                                 ctx.weight(params.lm_head, ("fsdp", "vocab")), tokens[:, 1:])
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> ZambaCaches:
@@ -151,42 +164,56 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> Za
 
 @torch.inference_mode()
 def prefill(ctx: Ctx, params: Zamba2, tokens: torch.Tensor, max_len: int):
-    """Run the prompt; build the caches (attention caches sized ``max_len``).
-    Returns (last-token logits (B, 1, V), caches)."""
+    """Run the prompt; build the caches (attention caches sized ``max_len``
+    or the prompt's length if longer). Returns (last-token logits (B, 1, V),
+    caches)."""
     b, s = tokens.shape
-    caches = init_caches(ctx.cfg, b, max_len, device=tokens.device)
-    x, (hs, convs, kvs) = _backbone(ctx, params, params.embed[tokens], None)
+    n, lo = _cache_block(ctx, max(max_len, s))
+    x, (hs, convs, kvs) = _backbone(ctx, params, _embed(ctx, params, tokens, None), None)
+    kv = (len(kvs), b, n, _local_kv_heads(ctx), ctx.cfg.hd)
+    attn_k, attn_v = (torch.zeros(kv, dtype=dtype_of(ctx.cfg), device=tokens.device)
+                      for _ in range(2))
     for gi, (k, v) in enumerate(kvs):
-        caches.attn_k[gi, :, :s] = k
-        caches.attn_v[gi, :, :s] = v
-    x = norm(ctx, params.final_norm, x[:, -1:])
-    return x @ params.lm_head, caches._replace(mamba_h=hs, mamba_conv=convs, length=s)
+        _write_seq(attn_k[gi], k, 0, lo)
+        _write_seq(attn_v[gi], v, 0, lo)
+    x = norm(ctx, params.final_norm, _last_position(ctx, x))
+    return _unembed(ctx, params, x), ZambaCaches(mamba_h=hs, mamba_conv=convs, attn_k=attn_k,
+                                                 attn_v=attn_v, length=s)
 
 
 @torch.inference_mode()
 def decode_step(ctx: Ctx, params: Zamba2, token: torch.Tensor, caches: ZambaCaches):
     """One serve step: (B, 1) token -> (B, 1, V) logits and the caches
     advanced (the Mamba states anew, the attention entries in place)."""
-    x, (hs, convs, _) = _backbone(ctx, params, params.embed[token], caches)
+    x, (hs, convs, _) = _backbone(ctx, params, _embed(ctx, params, token, None), caches)
     x = norm(ctx, params.final_norm, x)
-    return x @ params.lm_head, caches._replace(mamba_h=hs, mamba_conv=convs,
-                                               length=caches.length + token.shape[1])
+    return _unembed(ctx, params, x), caches._replace(mamba_h=hs, mamba_conv=convs,
+                                                     length=caches.length + token.shape[1])
 
 
-# -- sharding specs (the JAX package's tables; no mesh runs this family yet) ----
+# -- sharding specs (the JAX package's tables) -------------------------------------
+
+
+def mamba_block_specs() -> dict:
+    """A Mamba layer's logical specs, keyed by the layer-relative names."""
+    return {"ln.w": (None,), **{f"mamba.{n}": spec for n, spec in mamba_param_specs().items()}}
+
+
+def shared_attn_specs() -> dict:
+    """The shared block's logical specs (no layer dim: one block)."""
+    return {"ln1.w": (None,), "ln2.w": (None,),
+            "attn.wq": ("fsdp", "heads"), "attn.wk": ("fsdp", "heads"),
+            "attn.wv": ("fsdp", "heads"), "attn.wo": ("heads", "fsdp"),
+            "mlp.w_gate": ("fsdp", "d_ff"), "mlp.w_up": ("fsdp", "d_ff"),
+            "mlp.w_down": ("d_ff", "fsdp")}
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """Logical specs keyed by the parameter names (one tensor a layer)."""
-    attn = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"),
-            "wv": ("fsdp", "heads"), "wo": ("heads", "fsdp")}
     return sh.expand_layers(
-        {"embed": ("vocab", "fsdp"),
-         "blocks": {"ln": {"w": (None,)}, "mamba": mamba_param_specs()},
-         "shared_attn": {"ln1": {"w": (None,)}, "ln2": {"w": (None,)}, "attn": attn,
-                         "mlp": {"w_gate": ("fsdp", "d_ff"), "w_up": ("fsdp", "d_ff"),
-                                 "w_down": ("d_ff", "fsdp")}},
-         "final_norm": {"w": (None,)}, "lm_head": ("fsdp", "vocab")},
+        {"embed": ("vocab", "fsdp"), "blocks": mamba_block_specs(),
+         "shared_attn": shared_attn_specs(), "final_norm": {"w": (None,)},
+         "lm_head": ("fsdp", "vocab")},
         {"blocks": cfg.num_layers})
 
 

@@ -985,6 +985,146 @@ def test_lm_mesh_llama_full_width_on_four_cards(cuda):
     assert mesh.exit_codes == [0] * 4
 
 
+@pytest.mark.parametrize("arch,layers,seq", [("rwkv6-3b", 4, 2048), ("zamba2-2.7b", 6, 2048),
+                                           ("whisper-small", 12, 224)])
+def test_lm_mesh_families_float32_full_width_match_the_unsharded_model(cuda, arch, layers, seq):
+    """The ssm, hybrid and encdec families on a 2 x 2 mesh of rank processes
+    on the card (gloo, staged; nccl with four cards), float32 at full width
+    and cut depth (TF32 off), flash attention at prefill: prefill at B 4,
+    two decode steps and the loss equal the unsharded model's on the card
+    (float32 sums in other orders), so the bf16 mesh's logit differences in
+    ``chip_smoke.py`` are rounding. Prints each difference."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32",
+                              attn_impl="flash")
+    tcfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, seq))).to(cuda)
+    extra = {k: torch.as_tensor(v).to(cuda) for k, v in stub_inputs(cfg, 4, 2).items()}
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 257))).to(cuda),
+             **{k: torch.as_tensor(v).to(cuda) for k, v in stub_inputs(cfg, 4, 3).items()}}
+    model = api.init_params(cfg, seed=0, device=cuda)
+    want, state = api.prefill(Ctx(cfg), model, prompts, seq + 2, batch=extra)
+    tokens, want_dec = [want.argmax(-1)], []
+    for _ in range(2):
+        logits, state = api.decode_step(Ctx(cfg), model, tokens[-1], state)
+        want_dec.append(logits)
+        tokens.append(logits.argmax(-1))
+    with torch.no_grad():
+        want_loss = api.loss_fn(Ctx(tcfg), model, batch)
+    del model, state
+    torch.cuda.empty_cache()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=600)
+    try:
+        pre = build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", seq + 2, 4))
+        dec = build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", seq + 2, 4))
+        pre.init(seed=0)
+        got = [pre.step({"tokens": prompts, **extra})]
+        got += [dec.step(tokens[i]) for i in range(2)]
+        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", 256, 4), key="train")
+        train.init(seed=0)
+        loss, _ = train.loss_and_grads(batch)
+        diffs = [float((g - w).abs().max()) for g, w in zip(got, [want, *want_dec])]
+        print(f"\nlm_mesh float32 {arch} ({layers} layers, S {seq}; {_card_line()}): max |logit| "
+              f"{float(want.abs().max()):.4f}, max |diff| prefill and decode {diffs}; loss "
+              f"{float(loss):.7f} vs {float(want_loss):.7f}")
+        for g, w in zip(got, [want, *want_dec]):
+            torch.testing.assert_close(g, w, **tol)
+        torch.testing.assert_close(loss.cpu(), want_loss.cpu(), **tol)
+    finally:
+        mesh.close()
+    assert mesh.exit_codes == [0] * 4
+
+
+def test_lm_mesh_zamba2_full_width_and_depth_on_four_cards(cuda):
+    """zamba2-2.7b at full width and depth (54 Mamba-2 layers, the shared
+    attention block at 9 points) on a 2 x 2 mesh, one nccl rank a card: a
+    4 x 2048 prefill with flash attention (9 launches a rank), 2 decode
+    steps fed the unsharded model's greedy tokens and one train step at 4 x
+    2048 (reference attention, remat, 2 microbatches), held to the unsharded
+    model on card 0 (logits 0.5, loss 0.01). Prints the times and each
+    card's peak memory."""
+    import dataclasses
+    import time
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        build_decode_programs, build_prefill_programs, build_train_programs,
+    )
+    from repro_torch.models import Ctx, api
+    from repro_torch.optim import AdamWConfig
+
+    _lm_mesh_needs(4)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), attn_impl="flash")
+    tcfg = dataclasses.replace(cfg, attn_impl="reference")
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2048))).to(cuda)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2049))).to(cuda)}
+    model = api.init_params(cfg, seed=0, device=cuda)
+    ctx = Ctx(cfg)
+    want, caches = api.prefill(ctx, model, prompts, 2050)
+    tokens, want_dec = [want.argmax(-1)], []
+    for _ in range(2):
+        logits, caches = api.decode_step(ctx, model, tokens[-1], caches)
+        want_dec.append(logits.float())
+        tokens.append(logits.argmax(-1))
+    with torch.no_grad():
+        want_loss = float(api.loss_fn(Ctx(tcfg), model, batch))
+    del model, caches
+    torch.cuda.empty_cache()
+    mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=600)
+    try:
+        assert mesh.backend == "nccl"
+        shape = ShapeSpec("p", "prefill", 2050, 4)
+        pre = build_prefill_programs(cfg, mesh, shape)
+        dec = build_decode_programs(cfg, mesh, dataclasses.replace(shape, kind="decode"))
+        pre.init(seed=0)
+        t0 = time.perf_counter()
+        got = pre.step({"tokens": prompts})
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_err = float((got.float() - want.float()).abs().max())
+        assert prefill_err <= 0.5
+        assert all(st["flash_launches"] == 9 for st in pre.last_stats)
+        errs, ms = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            logits = dec.step(tokens[i])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            errs.append(float((logits.float() - want_dec[i]).abs().max()))
+        assert max(errs) <= 0.5, errs
+        serve_mem = _mesh_memory_gib(dec)
+        pre.release()
+        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", 2048, 4),
+                                     AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4))
+        assert train.microbatches == 2
+        train.init(seed=0)
+        t0 = time.perf_counter()
+        metrics = train.step(batch)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        assert abs(metrics["loss"] - want_loss) <= 0.01, (metrics, want_loss)
+        print(f"\nlm_mesh four cards zamba2-2.7b ({_card_line()}): launch to ready "
+              f"{mesh.ready_seconds:.2f} s; prefill {prefill_ms:.1f} ms (first call, max |logit "
+              f"diff| {prefill_err:.4f}); decode ms {ms} (max |diff| {max(errs):.4f}); train step "
+              f"{step_ms:.1f} ms, loss {metrics['loss']:.6f} vs {want_loss:.6f}; peak GiB a card "
+              f"serving {serve_mem}, training {_mesh_memory_gib(train)}; collectives "
+              f"{train.collectives()}")
+    finally:
+        mesh.close()
+    assert mesh.exit_codes == [0] * 4
+
+
 def test_lm_mesh_moonshot_full_depth_ep_push_on_four_cards(cuda):
     """moonshot-v1-16b-a3b at full width and full depth (48 layers, 56.1 GB
     of bf16 weights, about 14 GB a card) on a 2 x 2 mesh, one nccl rank a

@@ -33,9 +33,12 @@ import torch
 import repro_torch.configs as TC
 from repro_torch.configs import ShapeSpec
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
-from repro_torch.launch.mesh import close_meshes, make_host_mesh, make_mesh, make_mesh_over
+from repro_torch.launch.mesh import (
+    MeshShape, close_meshes, make_host_mesh, make_mesh, make_mesh_over,
+)
 from repro_torch.launch.steps import (
-    build_decode_programs, build_prefill_programs, build_programs, build_train_programs,
+    MICROBATCHES, build_decode_programs, build_prefill_programs, build_programs,
+    build_train_programs,
 )
 from repro_torch.models import api
 from repro_torch.models import sharding as sh
@@ -507,11 +510,26 @@ def test_host_mesh_and_a_mesh_over_listed_devices():
     assert host.exit_codes == [0, 0] and over.exit_codes == [0, 0, 0]
 
 
-def test_other_families_raise_naming_the_roadmap_item():
-    for arch in ("rwkv6-3b", "zamba2-2.7b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            build_programs(TC.reduced_config(arch), {"data": 2, "model": 2},
-                           ShapeSpec("p", "prefill", 32, 4))
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-2.7b", "whisper-small"])
+def test_other_families_build_programs_for_every_kind(arch):
+    """The ssm, hybrid and encdec families build train, prefill and decode
+    programs (no processes: a mesh shape); a weight spec a parameter, the
+    family's decode state specs, and whisper's frames among the inputs
+    (their parity on a mesh: ``tests/test_torch_lm_mesh_{rwkv6,zamba2,whisper}.py``)."""
+    mesh = MeshShape((2, 2), ("data", "model"))
+    for cfg in (TC.reduced_config(arch), TC.get_config(arch)):
+        names = {n for n, _ in api.abstract_params(cfg).named_parameters()}
+        state = api.decode_state_specs(cfg)
+        for kind in ("train", "prefill", "decode"):
+            progs = build_programs(cfg, mesh, ShapeSpec(kind, kind, 32, 4))
+            assert set(progs.param_sharding) == names and callable(progs.step)
+            if kind == "train":
+                assert progs.microbatches == MICROBATCHES.get(cfg.name, 1)
+            else:
+                assert type(progs.state_sharding) is type(state)
+                assert progs.state_sharding._fields == state._fields
+            if kind != "decode":
+                assert ("frames" in progs.batch_sharding) == (cfg.family == "encdec")
 
 
 def test_remesh_from_2x2_to_1x2_continues_the_loss():
