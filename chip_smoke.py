@@ -132,7 +132,12 @@ result, without them or outside a checkout of the repository. In order:
    ``run_supervised`` on the card with a failure injected at step 8 (one
    restart, the unfailed run's last losses); moonshot-v1-16b-a3b at full
    width cut to 2 of 48 layers, bf16, 3 steps (grads through routing and
-   capacity buffers; the forward's drop share printed);
+   capacity buffers; the forward's drop share printed); rwkv6-3b,
+   zamba2-2.7b (its chunks of 256), whisper-small (4 x 448 over 1500
+   frames) and phi-3-vision-4.2b (576 patches + 1472 tokens) unsharded at
+   full width and depth, a warm and a timed step each (phases "LM train
+   (<arch>, full width, unsharded)": step ms, positions/s, peak GiB, finite
+   losses and grad norms);
 7d. runs the LM on its ``(data, model)`` mesh (phase "LM (data, model)
    mesh, 2 x 2 rank processes on the card"): flash_attn first at a rank's
    head counts against its plain version; then 4 gloo rank processes share
@@ -156,6 +161,14 @@ result, without them or outside a checkout of the repository. In order:
    held to the unsharded loss (``MESH_LOSS_ATOL``); flash launches a rank a
    prefill as ``flash_per_serve`` counts them; an ``lm_mesh {...}`` line a
    family; every rank closed and its exit code 0;
+7f. holds the dry-run against the card (phase "dry-run vs the card"):
+   every call of 7d and 7e and every unsharded train run of 7c traced by
+   ``launch/dryrun.py`` (rank 0 on the meta device, 6 processes at once)
+   at the same config, depth, batch, sequence and mesh shape; the traced
+   collective calls per axis equal to the mesh's, the predicted peak a rank
+   within ``DRYRUN_PEAK_BAND`` of the measured one, and the roofline's
+   compute, memory and collective terms printed beside the measured ms (a
+   ``dryrun {...}`` line a cell);
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -179,6 +192,7 @@ and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -318,6 +332,22 @@ MESH_FAMILY_TRAIN = {"rwkv6-3b": (4, TRAIN_SEQ), "zamba2-2.7b": (6, TRAIN_SEQ),
 # MoE capacity buffers) adds with float atomics in no fixed order on the
 # card, so grads agree to rounding, not bit for bit
 REDUCED_TRAIN_STEPS, TRAIN_LOSS_RTOL = 5, 1e-4
+# the families past the dense and MoE LMs trained unsharded on the card at
+# full width and depth (bf16, remat, the reference attention branch, AdamW
+# as the llama train cell), TRAIN_BATCH rows of (arch, positions a row):
+# TRAIN_SEQ where the family takes it, whisper-small's decoder at its 448
+# positions over its 1500 frames, phi-3-vision-4.2b's 576 stub patches
+# before 1472 tokens; zamba2-2.7b at its own ssm_chunk (256). One warm step
+# and one timed step each
+FAMILY_TRAIN = (("rwkv6-3b", TRAIN_SEQ), ("zamba2-2.7b", TRAIN_SEQ), ("whisper-small", 448),
+                ("phi-3-vision-4.2b", TRAIN_SEQ))
+FAMILY_TRAIN_STEPS = 2
+# the dry-run (launch/dryrun.py) against the card: the traced peak a rank
+# over the measured one (a mesh rank's peak during the call; an unsharded
+# step's peak less what the process held before its weights were drawn)
+# must lie in this band, fixed before the dry-run first met the card; the
+# cells are traced in this many processes at once
+DRYRUN_PEAK_BAND, DRYRUN_WORKERS = (0.8, 1.25), 6
 
 
 def card_line() -> str:
@@ -356,6 +386,7 @@ class Smoke:
     def __init__(self):
         self.failures: list[str] = []
         self.kernels: list[dict] = []
+        self.cells: list[dict] = []  # calls the dry-run phase traces (dryrun_vs_card)
 
     def phase(self, name, fn, *args):
         t0 = time.perf_counter()
@@ -452,6 +483,9 @@ def main() -> int:
                 reduced_train_path, smoke, dev)
     smoke.phase(f"LM train ({MOE_ARCH}, full width, {MOE_TRAIN_LAYERS} of 48 layers)",
                 moe_train_path, smoke, dev)
+    for arch, seq in FAMILY_TRAIN:
+        smoke.phase(f"LM train ({arch}, full width, unsharded)", family_train_path, smoke, dev,
+                    arch, seq)
     torch.cuda.empty_cache()
     smoke.phase("flash_attn at the LM mesh ranks' head counts vs plain version",
                 flash_at_rank_shapes, smoke, dev)
@@ -460,6 +494,7 @@ def main() -> int:
     smoke.phase("LM (data, model) mesh: ssm, hybrid, encdec, "
                 f"{MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]} rank processes on the card",
                 lm_mesh_families_path, smoke, dev)
+    smoke.phase("dry-run vs the card", dryrun_vs_card, smoke)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None:
@@ -2622,22 +2657,33 @@ def flash_vs_plain(smoke: Smoke, lm: dict, reduced: "dict | None", moe: "dict | 
 # -- training ------------------------------------------------------------------
 
 
-def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
-              profile: bool = False, drop_share: bool = False) -> dict:
+def train_run(smoke: Smoke, dev, cfg, steps: int, *, seq: int = TRAIN_SEQ,
+              timed_apply: bool = False, profile: bool = False,
+              drop_share: bool = False) -> dict:
     """``steps`` of ``api.train_step`` on ``cfg`` (weights from seed 0 on the
-    card) over the synthetic stream at :data:`TRAIN_BATCH` x
-    :data:`TRAIN_SEQ`, AdamW as :data:`TRAIN_OPT`: each step's milliseconds
+    card) over the synthetic stream at :data:`TRAIN_BATCH` x ``seq``
+    positions (a VLM's stub patches among them; an encoder-decoder's stub
+    frames beside them), AdamW as :data:`TRAIN_OPT`: each step's milliseconds
     (host clock to the loss on the host), loss and grad norm, the peak
     memory; ``timed_apply``: then ``apply_updates`` alone on one more step's
     grads, twice, each between synchronizes; ``profile``: one more step
     under torch.profiler; ``drop_share``: the MoE layers' share of routed
     slots past capacity in step 0's forward. Prints a ``train {...}`` line;
-    every loss and grad norm must be finite."""
+    every loss and grad norm must be finite. ``steps_peak_bytes`` is the
+    peak over the steps, ``baseline_bytes`` what the process held before
+    the weights were drawn, both in the allocator's blocks; the
+    ``requested_`` pair the same in the sizes the tensors asked for;
+    ``cublas_workspace_bytes`` what cuBLAS's workspaces, dropped before the
+    weights, held after the steps."""
     import repro_torch.models.moe as moe
     from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import Ctx, api
     from repro_torch.optim import AdamWConfig, apply_updates
 
+    torch._C._cuda_clearCublasWorkspaces()  # the steps draw their own: their size is read after
+    baseline = torch.cuda.memory_allocated(dev)
+    baseline_requested = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
     t0 = time.perf_counter()
     model = api.init_params(cfg, seed=0, device=dev)
     n_weights = sum(p.numel() for p in model.parameters())
@@ -2648,11 +2694,19 @@ def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
           f"{cfg.attn_impl}): {n_weights} weights and their float32 moments on the card in "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
           "allocated", flush=True)
-    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH))
+    data = SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+        seq_len=seq - cfg.num_patches if cfg.family == "vlm" else seq))
+
+    def batch_at(step: int) -> dict:
+        batch = data.torch_batch(step, dev)
+        batch.update({k: torch.as_tensor(v, device=dev)
+                      for k, v in stub_inputs(cfg, TRAIN_BATCH, step).items()})
+        return batch
+
     ctx = Ctx(cfg)
     stats = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype, "weights": n_weights,
-             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+             "batch": TRAIN_BATCH, "seq": seq}
     if drop_share:
         dispatch, kept = moe._local_dispatch, []
 
@@ -2664,17 +2718,17 @@ def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
         moe._local_dispatch = capture
         try:
             with torch.no_grad():
-                api.loss_fn(ctx, model, data.torch_batch(0, dev))
+                api.loss_fn(ctx, model, batch_at(0))
         finally:
             moe._local_dispatch = dispatch
-        stats["capacity"] = moe._capacity(cfg, TRAIN_BATCH * TRAIN_SEQ, cfg.num_experts)
+        stats["capacity"] = moe._capacity(cfg, TRAIN_BATCH * seq, cfg.num_experts)
         stats["drop_share"] = [float((~k).float().mean()) for k in kept]
         smoke.check(len(kept) == cfg.num_layers, f"{len(kept)} MoE dispatches in {cfg.num_layers} layers")
 
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms, losses, norms = [], [], []
     for step in range(steps):
-        batch = data.torch_batch(step, dev)
+        batch = batch_at(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, state, metrics = api.train_step(ctx, model, state, batch, opt_cfg)
@@ -2683,10 +2737,13 @@ def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
         norms.append(float(metrics["grad_norm"]))
     median = float(np.median(step_ms[1:]))
     stats.update(step_ms=step_ms, step_ms_median_after_first=median,
-                 tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median * 1e3, loss=losses, grad_norm=norms)
+                 tokens_per_s=TRAIN_BATCH * seq / median * 1e3, loss=losses, grad_norm=norms,
+                 steps_peak_bytes=torch.cuda.max_memory_allocated(dev), baseline_bytes=baseline,
+                 steps_requested_peak_bytes=torch.cuda.memory_stats(dev)["requested_bytes.all.peak"],
+                 baseline_requested_bytes=baseline_requested)
     if timed_apply:
         named = dict(model.named_parameters())
-        loss = api.loss_fn(ctx, model, data.torch_batch(steps, dev))
+        loss = api.loss_fn(ctx, model, batch_at(steps))
         grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
         del loss
         apply_ms = []
@@ -2699,18 +2756,21 @@ def train_run(smoke: Smoke, dev, cfg, steps: int, *, timed_apply: bool = False,
         stats["apply_updates_ms"] = apply_ms
         del grads, named
     stats["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    stats["cublas_workspace_bytes"] = held - torch.cuda.memory_allocated(dev)
     print("  train " + json.dumps(stats), flush=True)
     smoke.check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
                 f"{cfg.name}: non-finite loss or grad norm: {losses} {norms}")
     if profile:
-        batch = data.torch_batch(steps + 1, dev)
+        batch = batch_at(steps + 1)
         box = [state]
 
         def one_step():
             _, box[0], metrics = api.train_step(ctx, model, box[0], batch, opt_cfg)
             return float(metrics["loss"])
 
-        profile_calls({f"{cfg.name} train step ({TRAIN_BATCH}x{TRAIN_SEQ}, "
+        profile_calls({f"{cfg.name} train step ({TRAIN_BATCH}x{seq}, "
                        f"{cfg.num_layers} layers)": one_step}, top=8)
     del model, state
     torch.cuda.empty_cache()
@@ -2725,7 +2785,112 @@ def lm_train_path(smoke: Smoke, dev) -> dict:
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(LM_ARCH), remat=True, attn_impl="reference")
-    return train_run(smoke, dev, cfg, TRAIN_STEPS, timed_apply=True, profile=True)
+    stats = train_run(smoke, dev, cfg, TRAIN_STEPS, timed_apply=True, profile=True)
+    smoke.cells.append(unsharded_cell(cfg, TRAIN_SEQ, stats))
+    return stats
+
+
+def family_train_path(smoke: Smoke, dev, arch: str, seq: int) -> dict:
+    """``arch`` (one of :data:`FAMILY_TRAIN`) trained unsharded at full
+    width and depth: bf16, remat on, the reference attention branch,
+    :data:`FAMILY_TRAIN_STEPS` steps of TRAIN_BATCH x ``seq`` positions (the
+    ``train {...}`` line: step ms, tokens/s, peak GiB, finite losses and
+    grad norms), printed beside the card's name and power limit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), remat=True, attn_impl="reference")
+    stats = train_run(smoke, dev, cfg, FAMILY_TRAIN_STEPS, seq=seq)
+    print(f"  {arch} unsharded train on {card_line()}: timed step "
+          f"{stats['step_ms_median_after_first']:.1f} ms, {stats['tokens_per_s']:.0f} positions/s, "
+          f"peak {stats['peak_gib']:.2f} GiB", flush=True)
+    smoke.cells.append(unsharded_cell(cfg, seq, stats))
+    return stats
+
+
+def unsharded_cell(cfg, seq: int, stats: dict) -> dict:
+    """An unsharded train run as a dry-run cell on a 1 x 1 mesh: the
+    peak over its steps less what the process held before its weights."""
+    from repro_torch.configs import ShapeSpec
+
+    return {"what": f"{cfg.name} train step, unsharded", "cfg": cfg, "sizes": (1, 1),
+            "shape": ShapeSpec("train_unsharded", "train", seq, TRAIN_BATCH), "microbatches": 1,
+            "calls": {}, "peak_bytes": [stats["steps_peak_bytes"] - stats["baseline_bytes"]],
+            "requested_peak_bytes": [stats["steps_requested_peak_bytes"]
+                                     - stats["baseline_requested_bytes"]],
+            "ms": stats["step_ms_median_after_first"]}
+
+
+def mesh_cell(what: str, progs, shape, ms: float) -> dict:
+    """A call on the 2 x 2 mesh as a dry-run cell: its config and shape, the
+    collective calls per axis and each rank's peak bytes during it."""
+    return {"what": what, "cfg": progs.ctx.cfg, "sizes": MESH_LM_SHAPE, "shape": shape,
+            "microbatches": progs.microbatches,
+            "calls": {a: c["calls"] for a, c in progs.collectives().items()},
+            "peak_bytes": [st.get("peak_bytes", 0) for st in progs.last_stats],
+            "requested_peak_bytes": [st.get("requested_peak_bytes", 0) for st in progs.last_stats],
+            "ms": ms}
+
+
+def dryrun_vs_card(smoke: Smoke) -> None:
+    """Phase "dry-run vs the card": every cell recorded by the mesh and
+    unsharded train phases traced by the dry-run (``launch/dryrun.py``: rank
+    0 on the meta device, no process, no card) at the same config, depth,
+    batch, sequence and mesh shape, :data:`DRYRUN_WORKERS` traces at once.
+    Its collective calls per axis must equal the mesh's, and its peak a
+    rank over the measured one lie in :data:`DRYRUN_PEAK_BAND`; a ``dryrun
+    {...}`` line a cell prints both with the roofline's compute, memory and
+    collective terms beside the measured ms."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch.dryrun import trace_cell
+
+    card = card_line()
+    cells = smoke.cells
+    smoke.check(bool(cells), "no mesh or train call was recorded")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        traced = list(pool.map(trace_cell, [c["cfg"] for c in cells], [c["sizes"] for c in cells],
+                               [("data", "model")] * len(cells), [c["shape"] for c in cells],
+                               [c["microbatches"] for c in cells]))
+    wall = time.perf_counter() - t0
+    lo, hi = DRYRUN_PEAK_BAND
+    bad, ratios, excess, requested_gap = [], [], [], []
+    for c, t in zip(cells, traced):
+        pred = t["memory"]["peak_bytes_per_dev"]
+        ratio = pred / c["peak_bytes"][0]
+        ratios.append(ratio)
+        # the measured peak over the predicted one, split in two: the
+        # allocator's blocks over the sizes asked for (rounding, cached
+        # blocks handed out whole), and the sizes asked for over the trace's
+        excess.append((c["peak_bytes"][0] - c["requested_peak_bytes"][0]) / 2**30)
+        requested_gap.append((c["requested_peak_bytes"][0] - pred) / 2**30)
+        rf = t["roofline"]
+        row = {"what": c["what"], "mesh": list(c["sizes"]), "shape": dataclasses.asdict(c["shape"]),
+               "layers": c["cfg"].num_layers, "card": card, "calls": c["calls"],
+               "traced_calls": t["collective_calls"],
+               "peak_gib_a_rank": [b / 2**30 for b in c["peak_bytes"]],
+               "predicted_peak_gib": pred / 2**30, "predicted_over_measured": ratio,
+               "requested_peak_gib_a_rank": [b / 2**30 for b in c["requested_peak_bytes"]],
+               "blocks_over_requested_gib": excess[-1], "requested_over_predicted_gib": requested_gap[-1],
+               "memory": t["memory"], "measured_ms": c["ms"],
+               "t_compute_ms": rf["t_compute"] * 1e3, "t_memory_ms": rf["t_memory"] * 1e3,
+               "t_collective_ms": rf["t_collective"] * 1e3, "dominant": rf["dominant"],
+               "flops": rf["flops"], "flops_by_dtype": t["flops_by_dtype"],
+               "bytes_hbm": rf["bytes_hbm"], "bytes_collective": rf["bytes_collective"],
+               "trace_s": t["seconds_trace"]}
+        print("  dryrun " + json.dumps(row), flush=True)
+        if t["collective_calls"] != c["calls"]:
+            bad.append(f"{c['what']}: the mesh's calls {c['calls']}, traced {t['collective_calls']}")
+        if not lo <= ratio <= hi:
+            bad.append(f"{c['what']}: predicted peak over measured {ratio:.3f} outside {DRYRUN_PEAK_BAND}")
+    print(f"  dry-run of {len(cells)} cells in {wall:.1f} s ({DRYRUN_WORKERS} processes); predicted "
+          f"over measured peak from {min(ratios):.3f} to {max(ratios):.3f}; measured over predicted: "
+          f"blocks over requested sizes {min(excess):.4f} to {max(excess):.4f} GiB, requested sizes "
+          f"over predicted {min(requested_gap):.4f} to {max(requested_gap):.4f} GiB", flush=True)
+    smoke.check(not bad, "; ".join(bad))
 
 
 def remat_vs_plain(smoke: Smoke, dev) -> None:
@@ -2954,6 +3119,8 @@ def lm_mesh_path(smoke: Smoke, dev) -> dict:
             logits, ms = timed(pre.step, {"tokens": prompts})
             err = diff(logits, want_prefill.float())
             row = record(f"prefill {attempt}", pre, ms, max_abs_logit_diff=err)
+            if attempt == "cold":  # the warm call holds the cold call's state as well
+                smoke.cells.append(mesh_cell(f"{LM_ARCH} prefill", pre, shape, ms))
             smoke.check(err <= LM_LOGIT_ATOL, f"mesh prefill logits differ by {err}")
             smoke.check(row["flash_launches_a_rank"] == [cfg.num_layers] * mesh.size,
                         f"flash launches a rank {row['flash_launches_a_rank']}")
@@ -2964,13 +3131,16 @@ def lm_mesh_path(smoke: Smoke, dev) -> dict:
             errs.append(diff(logits, want_decode[i]))
         record("decode steps", dec, decode_ms[-1], decode_ms=decode_ms,
                max_abs_logit_diff=max(errs))
+        smoke.cells.append(mesh_cell(f"{LM_ARCH} decode step", dec,
+                                     dataclasses.replace(shape, kind="decode"), decode_ms[-1]))
         smoke.check(max(errs) <= LM_LOGIT_ATOL, f"mesh decode logits differ by {max(errs)}")
         pre.release()
-        train = build_train_programs(train_cfg, mesh,
-                                     ShapeSpec("mesh_train", "train", TRAIN_SEQ, TRAIN_BATCH),
-                                     AdamWConfig(**TRAIN_OPT), key="llama-train")
+        train_shape = ShapeSpec("mesh_train", "train", TRAIN_SEQ, TRAIN_BATCH)
+        train = build_train_programs(train_cfg, mesh, train_shape, AdamWConfig(**TRAIN_OPT),
+                                     key="llama-train")
         _, init_ms = timed(train.init, 0)
         metrics, ms = timed(train.step, batch)
+        smoke.cells.append(mesh_cell(f"{LM_ARCH} train step", train, train_shape, ms))
         row = record("train step", train, ms, loss=metrics["loss"], unsharded_loss=want_loss,
                      grad_norm=metrics["grad_norm"])
         smoke.check(abs(metrics["loss"] - want_loss) <= MESH_LOSS_ATOL,
@@ -3000,6 +3170,8 @@ def lm_mesh_path(smoke: Smoke, dev) -> dict:
                                 f"{mode} at factor {cf}: {drops}")
                     smoke.check(err <= LM_LOGIT_ATOL, f"{mode}: logits differ by {err}")
                 record(f"{MOE_ARCH} prefill", progs, ms, **extra)
+                smoke.cells.append(mesh_cell(f"{MOE_ARCH} prefill, {mode}, factor {cf}", progs,
+                                             moe_shape, ms))
         base.release()
     finally:
         mesh.close()
@@ -3116,6 +3288,7 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
             logits, ms = timed_ms(pre.step, {"tokens": c["prompts"], **c["extra"]})
             prefill = mesh_call_row("prefill", pre, ms, max_abs_logit_diff=max_abs_diff(
                 logits, c["want_prefill"]))
+            smoke.cells.append(mesh_cell(f"{arch} prefill", pre, shape, ms))
             flash = flash_per_serve(cfg, 1)
             smoke.check(prefill["max_abs_logit_diff"] <= LM_LOGIT_ATOL,
                         f"{arch}: mesh prefill logits differ by {prefill['max_abs_logit_diff']}")
@@ -3128,14 +3301,18 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
                 decode_ms.append(ms)
                 errs.append(max_abs_diff(logits, c["want_decode"][i]))
             decode = mesh_call_row("decode step", dec, decode_ms[-1])
+            smoke.cells.append(mesh_cell(f"{arch} decode step", dec,
+                                         dataclasses.replace(shape, kind="decode"), decode_ms[-1]))
             smoke.check(max(errs) <= LM_LOGIT_ATOL, f"{arch}: mesh decode logits differ by {errs}")
             pre.release()
-            train = build_train_programs(
-                tcfg, mesh, ShapeSpec("mesh_train", "train", c["seq"], TRAIN_BATCH),
-                AdamWConfig(**TRAIN_OPT), key=f"{arch}-train")
+            train_shape = ShapeSpec("mesh_train", "train", c["seq"], TRAIN_BATCH)
+            train = build_train_programs(tcfg, mesh, train_shape, AdamWConfig(**TRAIN_OPT),
+                                         key=f"{arch}-train")
             _, train_init_ms = timed_ms(train.init, 0)
             metrics, ms = timed_ms(train.step, c["tbatch"])
             step = mesh_call_row("train step", train, ms)
+            smoke.cells.append(mesh_cell(f"{arch} train step ({tcfg.num_layers} layers)", train,
+                                         train_shape, ms))
             loss_diff = abs(metrics["loss"] - c["want_loss"])
             smoke.check(loss_diff <= MESH_LOSS_ATOL,
                         f"{arch}: mesh step-1 loss {metrics['loss']} vs unsharded {c['want_loss']}")

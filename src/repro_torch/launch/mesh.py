@@ -497,8 +497,9 @@ class RankMesh:
     def group(self, axis: str) -> RankGroup:
         return self._groups[axis]
 
-    def tally(self, name: str, n: int) -> None:
-        self.tallies[name] = self.tallies.get(name, 0) + n
+    def tally(self, name: str, n: "int | torch.Tensor") -> None:
+        """Add ``n`` (a count, or a 0-d tensor read here) to ``name``."""
+        self.tallies[name] = self.tallies.get(name, 0) + int(n)
 
     def reset_counts(self) -> None:
         """Zero the collective counters and the tallies."""

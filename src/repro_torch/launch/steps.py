@@ -67,6 +67,7 @@ class CellPrograms:
     abstract_inputs: Any = None
     key: str = ""
     microbatches: int = 1
+    opt_cfg: "AdamWConfig | None" = None
     last_stats: list = dataclasses.field(default_factory=list)
 
     @property
@@ -200,6 +201,7 @@ def build_train_programs(cfg: ModelConfig, mesh, shape: ShapeSpec,
         abstract_inputs=(params_abs, api.init_opt(cfg, params_abs, opt_cfg), batch_abs),
         key=key or cfg.name,
         microbatches=microbatches or MICROBATCHES.get(cfg.name, 1),
+        opt_cfg=opt_cfg,
     )
 
     def step(batch: dict) -> dict:
@@ -275,20 +277,27 @@ def build_programs(cfg: ModelConfig, mesh, shape: ShapeSpec, **kw) -> CellProgra
 
 
 def _stats(mesh, device: torch.device) -> dict:
+    """The call's counts and, on the card, its memory (``peak_bytes``: the
+    most allocated since the call began, in the allocator's blocks;
+    ``requested_peak_bytes``: the same in the sizes the tensors asked for)."""
     st = {"counts": mesh.counts(),
           "drops": {k: mesh.tallies.get(f"moe_{k}", 0) for k in ("routed", "kept")},
           "flash_launches": flash_attn.launches}
     if device.type == "cuda":
         st["allocated_bytes"] = torch.cuda.memory_allocated(device)
         st["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        st["requested_peak_bytes"] = torch.cuda.memory_stats(device)["requested_bytes.all.peak"]
         st["reserved_bytes"] = torch.cuda.memory_reserved(device)
     return st
 
 
-def _begin(mesh) -> None:
-    """Zero the call's counts: collectives, MoE slots, flash launches."""
+def _begin(mesh, device: torch.device) -> None:
+    """Zero the call's counts (collectives, MoE slots, flash launches) and
+    the card's peak memory."""
     mesh.reset_counts()
     flash_attn.launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
 
 def _reply(mesh, group, **fields) -> dict:
@@ -341,7 +350,7 @@ def _local_model(cfg: ModelConfig, mesh, specs: dict, seed: int, device) -> nn.M
 
 def _init_body(rank, world, group, *, key, cfg, rules, seed):
     mesh = group.mesh
-    _begin(mesh)
+    _begin(mesh, group.device)
     t0 = time.perf_counter()
     mesh.resident[key] = {"params": _local_model(cfg, mesh, _resolved(cfg, rules), seed,
                                                  group.device)}
@@ -352,7 +361,7 @@ def _init_body(rank, world, group, *, key, cfg, rules, seed):
 
 def _load_body(rank, world, group, params, opt_state, *, key, cfg, rules):
     mesh = group.mesh
-    _begin(mesh)
+    _begin(mesh, group.device)
     model = api.init_params(cfg, device="meta")
     dtypes = {n: p.dtype for n, p in model.named_parameters()}
 
@@ -389,7 +398,7 @@ def _blocks_body(rank, world, group, *, key, cfg, rules, what):
 
 def _release_body(rank, world, group, *, key, cfg, rules):
     mesh = group.mesh
-    _begin(mesh)
+    _begin(mesh, group.device)
     mesh.resident.pop(key, None)
     if group.device.type == "cuda":
         torch.cuda.empty_cache()
@@ -407,19 +416,55 @@ def _opt(res: dict, opt_cfg: AdamWConfig) -> AdamWState:
     return res["opt"]
 
 
+# -- one rank's step: the rank bodies and the dry-run (launch/dryrun.py) share it ---------
+
+
+def train_local(ctx: Ctx, res: dict, local: dict, opt_cfg: AdamWConfig,
+                microbatches: int) -> dict:
+    """One train step on the rank's resident weights and moments (``res``;
+    zero moments on the first step) over its batch rows ``local``; the
+    metrics as tensors."""
+    opt = _opt(res, opt_cfg)
+    with torch.enable_grad():
+        _, res["opt"], metrics = api.train_step(ctx, res["params"], opt, local, opt_cfg,
+                                                microbatches=microbatches)
+    return metrics
+
+
+def prefill_local(ctx: Ctx, res: dict, local: dict, max_len: int) -> torch.Tensor:
+    """The prompt pass over the rank's rows ``local`` (tokens and the
+    family's frames or patches); the decode state stays in ``res``. The
+    rank's block of the last-token logits."""
+    local = dict(local)
+    tokens = local.pop("tokens")
+    logits, state = api.prefill(ctx, res["params"], tokens, max_len, batch=local)
+    res["state"], res["state_spec"] = state, _state_specs(ctx.cfg, ctx.rules)
+    return logits
+
+
+def decode_local(ctx: Ctx, res: dict, token: torch.Tensor) -> torch.Tensor:
+    """One decode step of the rank's rows ``token`` over the resident state
+    (first moved from the prefill's layout to the decode's); the rank's
+    block of the logits."""
+    spec = _state_specs(ctx.cfg, ctx.rules)
+    if res["state_spec"] != spec:  # the prefill's layout -> the decode's
+        old, state = res["state_spec"], res["state"]
+        res["state"] = type(state)(**{
+            n: state.length if n == "length"
+            else sh.relayout(ctx.mesh, getattr(state, n), getattr(old, n), getattr(spec, n))
+            for n in state._fields})
+        res["state_spec"] = spec
+    logits, res["state"] = api.decode_step(ctx, res["params"], token, res["state"])
+    return logits
+
+
 def _train_body(rank, world, group, batch, *, key, cfg, rules, opt_cfg, microbatches):
     mesh = group.mesh
-    _begin(mesh)
+    _begin(mesh, group.device)
     res = mesh.resident[key]
     local = {n: _rows(mesh, rules, t, group.device) for n, t in batch.items()}
-    opt = _opt(res, opt_cfg)
-    if group.device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(group.device)
     t0 = time.perf_counter()
-    with torch.enable_grad():
-        _, opt, metrics = api.train_step(Ctx(cfg, mesh, rules), res["params"], opt, local,
-                                         opt_cfg, microbatches=microbatches)
-    res["opt"] = opt
+    metrics = train_local(Ctx(cfg, mesh, rules), res, local, opt_cfg, microbatches)
     metrics = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"])}
     if group.device.type == "cuda":
@@ -429,7 +474,7 @@ def _train_body(rank, world, group, batch, *, key, cfg, rules, opt_cfg, microbat
 
 def _grads_body(rank, world, group, batch, *, key, cfg, rules, microbatches):
     mesh = group.mesh
-    _begin(mesh)
+    _begin(mesh, group.device)
     res = mesh.resident[key]
     local = {n: _rows(mesh, rules, t, group.device) for n, t in batch.items()}
     with torch.enable_grad():
@@ -439,27 +484,15 @@ def _grads_body(rank, world, group, batch, *, key, cfg, rules, microbatches):
 
 def _prefill_body(rank, world, group, batch, *, key, cfg, rules, max_len):
     mesh = group.mesh
-    _begin(mesh)
-    res = mesh.resident[key]
+    _begin(mesh, group.device)
     local = {n: _rows(mesh, rules, t, group.device) for n, t in batch.items()}
-    tokens = local.pop("tokens")
-    logits, state = api.prefill(Ctx(cfg, mesh, rules), res["params"], tokens, max_len, batch=local)
-    res["state"], res["state_spec"] = state, _state_specs(cfg, rules)
+    logits = prefill_local(Ctx(cfg, mesh, rules), mesh.resident[key], local, max_len)
     return _reply(mesh, group, logits=logits.clone())
 
 
 def _decode_body(rank, world, group, token, *, key, cfg, rules):
     mesh = group.mesh
-    _begin(mesh)
-    res = mesh.resident[key]
-    spec = _state_specs(cfg, rules)
-    if res["state_spec"] != spec:  # the prefill's layout -> the decode's
-        old, state = res["state_spec"], res["state"]
-        res["state"] = type(state)(**{
-            n: state.length if n == "length"
-            else sh.relayout(mesh, getattr(state, n), getattr(old, n), getattr(spec, n))
-            for n in state._fields})
-        res["state_spec"] = spec
+    _begin(mesh, group.device)
     local = _rows(mesh, rules, token, group.device)
-    logits, res["state"] = api.decode_step(Ctx(cfg, mesh, rules), res["params"], local, res["state"])
+    logits = decode_local(Ctx(cfg, mesh, rules), mesh.resident[key], local)
     return _reply(mesh, group, logits=logits.clone())

@@ -109,9 +109,14 @@ class AlphaBeta:
 class Peaks:
     """Roofline peaks of one device."""
 
-    flops: float  # FLOP/s per device
+    flops: float  # FLOP/s per device (float32 outside the tensor cores)
     hbm_bw: float  # bytes/s per device
-    ici_bw: float  # bytes/s per device-to-device link (unused: the port has no mesh)
+    # bytes/s between devices: the dry-run's collective term
+    # (launch/roofline.py) divides each device's ring wire bytes by it. The
+    # bundled figure is the H100 SXM's NVLink 4 total, 900 GB/s over its 18
+    # links counting both directions (450 GB/s each way), so the term is
+    # the least such a step could take
+    ici_bw: float
 
     def to_dict(self) -> dict[str, float]:
         return dataclasses.asdict(self)
@@ -122,6 +127,13 @@ class Peaks:
             flops=float(d["flops"]), hbm_bw=float(d["hbm_bw"]),
             ici_bw=float(d["ici_bw"]),
         )
+
+
+#: the H100 SXM's dense bf16 FLOP/s on the tensor cores (NVIDIA's data
+#: sheet), the dry-run's rate for bf16 products. The machine file keeps the
+#: JAX package's schema, one FLOP rate (``Peaks.flops``, float32 outside the
+#: tensor cores), so this rate stands beside it
+BF16_TENSOR_FLOPS = 989e12
 
 
 @dataclasses.dataclass(frozen=True)

@@ -431,6 +431,7 @@ def attn_sublayer(
     xkv: torch.Tensor | None = None,  # cross-attention source (B, Skv, D)
     causal: bool = True,
     use_rope: bool = True,
+    kv_len: int | None = None,  # the keys' source's valid positions (prefill, training)
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Attention sublayer. Returns (out, the updated cache or the fresh
     (k, v)).
@@ -439,7 +440,11 @@ def attn_sublayer(
     - decode: ``cache`` and ``cache_len`` given, x is the new token(s);
     - cross-attention: ``xkv`` given (the encoder's states, in the residual
       layout as x is), keys and values from it, no rope, no causal mask and
-      no window.
+      no window;
+    - ``kv_len``: keys and values from the first ``kv_len`` positions of
+      their source only (x, or ``xkv``), whole positions: the encoder's
+      frames padded to divide the sequence axes keep their padding out of
+      every softmax.
 
     On a mesh (module docstring) q, k and v are this rank's heads when the
     rules shard them (``heads4d``, ``kv_heads4d``), else every head, and
@@ -456,6 +461,8 @@ def attn_sublayer(
     x = whole_positions(ctx, x)
     b, s, _ = x.shape
     src = x if xkv is None else whole_positions(ctx, xkv)
+    if kv_len is not None:
+        src = src[:, :kv_len]
     q, k, v = x @ p.wq, src @ p.wk, src @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv

@@ -195,11 +195,12 @@ EXPERT_SPECS = {
 def _count(ctx: Ctx, routed: int, kept: torch.Tensor) -> None:
     """Tally a mesh rank's routed and kept slots (its drop share; the
     caller sums the ranks). Not under grad: a remat recompute would count
-    twice."""
+    twice. The kept count goes to the mesh as a tensor: a rank's mesh reads
+    it, a traced rank's (``launch/roofline.py``) has nothing to read."""
     if torch.is_grad_enabled():
         return
     ctx.mesh.tally("moe_routed", routed)
-    ctx.mesh.tally("moe_kept", int(kept.sum()))
+    ctx.mesh.tally("moe_kept", kept.sum())
 
 
 def _single_shard(ctx: Ctx, router, wg, wu, wd, x: torch.Tensor, count: bool) -> torch.Tensor:

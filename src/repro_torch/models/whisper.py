@@ -16,7 +16,11 @@ On the ``(data, model)`` mesh (``models/layers.py``) the encoder's and the
 decoder's streams are both in the residual layout, each layer's weights are
 gathered to their layout at use, and attention runs over this rank's heads
 (the encoder's non-causal). The cross-attention gathers the encoder's
-states' positions before its keys and values. The vocab (51,865) does not
+states' positions before its keys and values. Where the sequence axes do
+not divide the frames (1500 over 16), the encoder pads them to a multiple
+(as GSPMD pads an uneven dim) and every attention over the encoder's states
+reads the first ``frames`` keys only, so the padded positions change
+nothing. The vocab (51,865) does not
 divide ``model``, so the rules replicate the embedding, ``lm_head`` and the
 loss over it. The cross caches hold this rank's rows and kv heads over
 every frame.
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
@@ -92,9 +97,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Whisper:
     return Whisper(cfg, seed=seed, device=device)
 
 
-def _enc_block(ctx: Ctx, p: EncBlock, x):
+def _enc_block(ctx: Ctx, p: EncBlock, x, frames: int):
     p = ctx.gathered(p, enc_block_specs())
-    h, _ = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), causal=False, use_rope=False)
+    h, _ = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), causal=False, use_rope=False,
+                         kv_len=frames)
     x = x + h
     return x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x))
 
@@ -111,33 +117,44 @@ def _positions(ctx: Ctx, b: int, s: int, dtype, device, start: int = 0) -> torch
     return ctx.cs(pe.expand(b, -1, -1), *RES, src=("batch", None, None))
 
 
+def _frame_pad(ctx: Ctx, f: int) -> int:
+    """Positions that pad ``f`` frames to a multiple of the residual
+    stream's sequence axes (0 without a mesh)."""
+    if ctx.mesh is None:
+        return 0
+    return -f % sh.axis_size(ctx.mesh, ctx.axes("residual_seq"))
+
+
 def encode(ctx: Ctx, params: Whisper, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, D) stub embeddings -> the encoder's states, in the
-    residual layout."""
+    residual layout (padded past F on a mesh whose sequence axes do not
+    divide F; the padded states are read by nothing)."""
     dt = dtype_of(ctx.cfg)
     b, f, _ = frames.shape
-    x = ctx.cs(frames.to(dt), *RES, src=("batch", None, None)) + _positions(ctx, b, f, dt,
-                                                                           frames.device)
+    fp = f + _frame_pad(ctx, f)
+    x = F.pad(frames.to(dt), (0, 0, 0, fp - f))
+    x = ctx.cs(x, *RES, src=("batch", None, None)) + _positions(ctx, b, fp, dt, frames.device)
     run = _layers(ctx, _enc_block)
     for blk in params.enc_blocks:
-        x = run(ctx, blk, x)
+        x = run(ctx, blk, x, f)
     return norm(ctx, params.enc_norm, x)
 
 
-def _dec_block(ctx: Ctx, p: DecBlock, x, enc):
+def _dec_block(ctx: Ctx, p: DecBlock, x, enc, frames: "int | None"):
     """A decoder layer over a whole sequence (training, prefill), its
-    cross-attention against ``enc``. Returns (x, its self (k, v), its cross
-    (k, v))."""
+    cross-attention against the first ``frames`` of ``enc`` (all when
+    None). Returns (x, its self (k, v), its cross (k, v))."""
     p = ctx.gathered(p, dec_block_specs())
     h, kv = attn_sublayer(ctx, p.attn, norm(ctx, p.ln1, x), use_rope=False)
     x = x + h
-    h, xkv = attn_sublayer(ctx, p.xattn, norm(ctx, p.ln_x, x), xkv=enc, use_rope=False)
+    h, xkv = attn_sublayer(ctx, p.xattn, norm(ctx, p.ln_x, x), xkv=enc, use_rope=False,
+                           kv_len=frames)
     x = x + h
     return x + mlp_sublayer(ctx, p.mlp, norm(ctx, p.ln2, x)), kv, xkv
 
 
-def _dec_block_out(ctx: Ctx, p: DecBlock, x, enc):
-    return _dec_block(ctx, p, x, enc)[0]
+def _dec_block_out(ctx: Ctx, p: DecBlock, x, enc, frames: "int | None"):
+    return _dec_block(ctx, p, x, enc, frames)[0]
 
 
 def _embed_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -146,29 +163,33 @@ def _embed_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, start: int = 
     return x + _positions(ctx, x.shape[0], tokens.shape[1], x.dtype, x.device, start)
 
 
-def _decoder(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+def _decoder(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
+             frames: "int | None") -> torch.Tensor:
     """Teacher-forced decoder pass to the final norm, every position."""
     x = _embed_tokens(ctx, params, tokens)
     run = _layers(ctx, _dec_block_out)
     for blk in params.dec_blocks:
-        x = run(ctx, blk, x, enc)
+        x = run(ctx, blk, x, enc, frames)
     return whole_positions(ctx, norm(ctx, params.final_norm, x))
 
 
-def decode_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced decoder pass: (B, S) tokens -> (B, S, V) logits."""
-    return _unembed(ctx, params, _decoder(ctx, params, tokens, enc))
+def decode_tokens(ctx: Ctx, params: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
+                  frames: "int | None" = None) -> torch.Tensor:
+    """Teacher-forced decoder pass: (B, S) tokens -> (B, S, V) logits,
+    attending to the first ``frames`` of the encoder's states (all when
+    None)."""
+    return _unembed(ctx, params, _decoder(ctx, params, tokens, enc, frames))
 
 
 def forward(ctx: Ctx, params: Whisper, tokens: torch.Tensor, frames: torch.Tensor) -> torch.Tensor:
-    return decode_tokens(ctx, params, tokens, encode(ctx, params, frames))
+    return decode_tokens(ctx, params, tokens, encode(ctx, params, frames), frames.shape[1])
 
 
 def loss_fn(ctx: Ctx, params: Whisper, batch: dict) -> torch.Tensor:
     """Next-token CE of ``batch["tokens"]`` (B, S + 1) given
     ``batch["frames"]``."""
-    tokens = batch["tokens"].long()
-    x = _decoder(ctx, params, tokens[:, :-1], encode(ctx, params, batch["frames"]))
+    tokens, frames = batch["tokens"].long(), batch["frames"]
+    x = _decoder(ctx, params, tokens[:, :-1], encode(ctx, params, frames), frames.shape[1])
     return chunked_cross_entropy(ctx, x, ctx.weight(params.lm_head, ("fsdp", "vocab")),
                                  tokens[:, 1:])
 
@@ -200,7 +221,7 @@ def prefill(ctx: Ctx, params: Whisper, tokens: torch.Tensor, max_len: int, frame
     caches = init_caches(ctx.cfg, b, n, device=tokens.device, kv_heads=_local_kv_heads(ctx))
     x = _embed_tokens(ctx, params, tokens)
     for i, blk in enumerate(params.dec_blocks):
-        x, (k, v), (xk, xv) = _dec_block(ctx, blk, x, enc)
+        x, (k, v), (xk, xv) = _dec_block(ctx, blk, x, enc, frames.shape[1])
         _write_seq(caches.self_k[i], k, 0, lo)
         _write_seq(caches.self_v[i], v, 0, lo)
         caches.cross_k[i] = xk

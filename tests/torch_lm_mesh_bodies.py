@@ -38,3 +38,25 @@ def lm_forward(rank, world, group, params, tokens, *, cfg, rules):
     with torch.no_grad():
         logits = transformer.forward(Ctx(cfg, mesh, rules), model, rows)
     return {"logits": logits, "coords": dict(mesh.coords)}
+
+
+def _host_count(ctx, routed, kept):
+    """The MoE slot tally as it was made before it moved into the mesh: the
+    kept count read on the host where it is made."""
+    if torch.is_grad_enabled():
+        return
+    ctx.mesh.tally("moe_routed", routed)
+    ctx.mesh.tally("moe_kept", int(kept.sum()))
+
+
+def prefill_host_tally(rank, world, group, batch, *, key, cfg, rules, max_len):
+    """``steps._prefill_body`` with the MoE tally read on the host in the
+    layer (``_host_count``); the rank's routed and kept slots."""
+    count = moe._count
+    moe._count = _host_count
+    try:
+        out = steps._prefill_body(rank, world, group, batch, key=key, cfg=cfg, rules=rules,
+                                  max_len=max_len)
+    finally:
+        moe._count = count
+    return out

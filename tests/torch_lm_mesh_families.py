@@ -45,7 +45,11 @@ REF_TIMEOUT_S = 600
 
 REF_SCRIPT = r'''
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+# the in-order schedule: with the concurrency-optimised one, the uneven-frames
+# program's collective-permute and all-gathers deadlock the 8 host devices on
+# a loaded machine (2 free cores are enough to show it)
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8"
+                           " --xla_cpu_enable_concurrency_optimized_scheduler=false")
 import jax, jax.numpy as jnp, numpy as np
 from repro.compat import make_mesh
 from repro.configs import reduced_config
@@ -55,6 +59,7 @@ from repro.models import api
 from repro.optim import AdamWConfig
 
 out_path, dims, arch = sys.argv[1], tuple(int(v) for v in sys.argv[2].split("x")), sys.argv[3]
+upd = {k: int(v) for k, v in (kv.split("=") for kv in sys.argv[4:])}  # integer config fields
 mesh = make_mesh(dims, ("data", "model"))
 B, S, G = 8, 16, 4
 out = {}
@@ -78,7 +83,8 @@ def save_state(prefix, state):
         out[f"{prefix}/{name}"] = np.array(a)
 
 
-cfg = reduced_config(arch)
+import dataclasses
+cfg = dataclasses.replace(reduced_config(arch), **upd)
 init = api.init_params(cfg, jax.random.PRNGKey(0))
 rng = np.random.default_rng(100)
 
@@ -149,11 +155,13 @@ def _time_limit():
     signal.signal(signal.SIGALRM, previous)
 
 
-def reference(arch: str, shape: tuple, out_dir: Path) -> dict:
-    """The reference script's results for ``arch`` on the ``shape`` mesh."""
+def reference(arch: str, shape: tuple, out_dir: Path, **upd) -> dict:
+    """The reference script's results for ``arch`` (its reduced config with
+    the integer fields ``upd`` replaced) on the ``shape`` mesh."""
     path = out_dir / f"{arch}-{shape[0]}x{shape[1]}.npz"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(path), f"{shape[0]}x{shape[1]}", arch],
+    r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(path), f"{shape[0]}x{shape[1]}", arch,
+                        *(f"{k}={v}" for k, v in upd.items())],
                        env=env, capture_output=True, text=True, timeout=REF_TIMEOUT_S)
     assert r.returncode == 0 and "REF-MESH-OK" in r.stdout, f"stdout={r.stdout}\nstderr={r.stderr}"
     with np.load(path) as z:
@@ -252,10 +260,10 @@ def check_serve(mesh, ref: dict, arch: str, **upd) -> None:
     pre.release()
 
 
-def check_train(mesh, ref: dict, arch: str) -> None:
+def check_train(mesh, ref: dict, arch: str, **upd) -> None:
     """The loss and every gradient, then one train step (its loss, grad
     norm and every updated weight), against the reference's."""
-    cfg = TC.reduced_config(arch)
+    cfg = dataclasses.replace(TC.reduced_config(arch), **upd)
     train = build_train_programs(cfg, mesh, ShapeSpec("t", "train", S, B), key=f"{arch}-train")
     assert train.rules.residual_seq == ("model",)
     train.load(lm_params_from_numpy(cfg, tree(ref, "params/"), device="cpu"))
