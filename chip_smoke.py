@@ -160,7 +160,11 @@ result, without them or outside a checkout of the repository. In order:
    train step at full width and cut depth (``MESH_FAMILY_TRAIN``), its loss
    held to the unsharded loss (``MESH_LOSS_ATOL``); flash launches a rank a
    prefill as ``flash_per_serve`` counts them; an ``lm_mesh {...}`` line a
-   family; every rank closed and its exit code 0;
+   family and an ``lm_mesh_families_summary`` line (``model`` calls a
+   call); every rank closed and its exit code 0; then phi-3-vision-4.2b the
+   same way on a mesh of its own (phase "LM mesh (phi-3-vision-4.2b, 2 x 2,
+   one card)": 576 stub patches before 1472 tokens, 32 flash launches a
+   rank at D 96, the train step at 4 of 32 layers; ``lm_mesh_vlm_summary``);
 7f. holds the dry-run against the card (phase "dry-run vs the card"):
    every call of 7d and 7e and every unsharded train run of 7c traced by
    ``launch/dryrun.py`` (rank 0 on the meta device, 6 processes at once)
@@ -168,7 +172,10 @@ result, without them or outside a checkout of the repository. In order:
    collective calls per axis equal to the mesh's, the predicted peak a rank
    within ``DRYRUN_PEAK_BAND`` of the measured one, and the roofline's
    compute, memory and collective terms printed beside the measured ms (a
-   ``dryrun {...}`` line a cell);
+   ``dryrun {...}`` line a cell); then traces rwkv6-3b's and zamba2-2.7b's
+   train_4k and prefill_32k cells on the single-pod mesh (phase "dry-run
+   compute term"; a ``dryrun_split {...}`` line a cell with its three
+   terms);
 8. holds every kernel against its plain PyTorch version at the main path's
    shapes and times kernel, plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take (bound),
@@ -325,7 +332,20 @@ MESH_LM_TIMEOUT_S = 900.0
 # positions over its 1500 frames
 MESH_FAMILIES, MESH_FAMILY_GEN = ("rwkv6-3b", "zamba2-2.7b", "whisper-small"), 2
 MESH_FAMILY_TRAIN = {"rwkv6-3b": (4, TRAIN_SEQ), "zamba2-2.7b": (6, TRAIN_SEQ),
-                     "whisper-small": (12, 448)}
+                     "whisper-small": (12, 448), "phi-3-vision-4.2b": (4, TRAIN_SEQ)}
+# the vlm family on its own 2 x 2 mesh on the card, as the families above:
+# served at full width and depth (576 stub patches before its FAMILIES
+# prompt, flash at D 96 over a rank's 16 / 16 heads), one train step at full
+# width cut to 4 of 32 layers over 2048 positions (the patches and 1472
+# tokens)
+MESH_VLM = "phi-3-vision-4.2b"
+# the dry-run's terms of the production cells of rwkv6-3b (its time mix and
+# decay LoRA split over "model" as GSPMD splits them) and zamba2-2.7b (its
+# Mamba-2 scores local), on the single-pod mesh: traced on the meta device
+# in DRYRUN_WORKERS processes.
+# The train and prefill cells only: decode's trace takes a second from the
+# CLI (``python -m repro_torch.launch.dryrun``), and these run at once
+DRYRUN_SPLIT_ARCHS, DRYRUN_SPLIT_SHAPES = ("rwkv6-3b", "zamba2-2.7b"), ("train_4k", "prefill_32k")
 # the reduced float32 LM trained on the card and on the CPU, and the
 # supervised run's recovery: losses, relative. cuBLAS sums in other orders
 # than the CPU's BLAS, and the backward of a row gather (the embedding; the
@@ -494,7 +514,11 @@ def main() -> int:
     smoke.phase("LM (data, model) mesh: ssm, hybrid, encdec, "
                 f"{MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]} rank processes on the card",
                 lm_mesh_families_path, smoke, dev)
+    smoke.phase(f"LM mesh ({MESH_VLM}, {MESH_LM_SHAPE[0]} x {MESH_LM_SHAPE[1]}, one card)",
+                lm_mesh_vlm_path, smoke, dev)
     smoke.phase("dry-run vs the card", dryrun_vs_card, smoke)
+    smoke.phase(f"dry-run compute term, {' and '.join(DRYRUN_SPLIT_ARCHS)} production cells "
+                "(single pod)", dryrun_split_cells, smoke)
     if launches is not None:
         smoke.phase("kernels vs plain versions, timed", kernels_vs_plain, smoke, inputs, launches)
     if lm is not None:
@@ -2893,6 +2917,43 @@ def dryrun_vs_card(smoke: Smoke) -> None:
     smoke.check(not bad, "; ".join(bad))
 
 
+def dryrun_split_cells(smoke: Smoke) -> None:
+    """Phase "dry-run compute term, rwkv6-3b and zamba2-2.7b production
+    cells (single pod)": the :data:`DRYRUN_SPLIT_SHAPES` of
+    :data:`DRYRUN_SPLIT_ARCHS` on the single-pod production mesh, traced as
+    ``python -m repro_torch.launch.dryrun`` traces a cell (``run_cell``: rank
+    0 on the meta device, no card), :data:`DRYRUN_WORKERS` cells at once. A
+    ``dryrun_split {...}`` line a cell: the compute, memory and collective
+    terms, the traced FLOPs a device by type and the useful-FLOPs ratio;
+    every applicable cell must trace."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.launch.dryrun import run_cell
+
+    card = card_line()
+    todo = [(arch, shape) for arch in DRYRUN_SPLIT_ARCHS for shape in DRYRUN_SPLIT_SHAPES]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(run_cell, [a for a, _ in todo], [s for _, s in todo],
+                             ["single"] * len(todo)))
+    for r in done:
+        row = {k: r[k] for k in ("arch", "shape", "mesh", "status")}
+        if r["status"] == "ok":
+            rf = r["roofline"]
+            row.update(n_chips=r["n_chips"], t_compute_ms=rf["t_compute"] * 1e3,
+                       t_memory_ms=rf["t_memory"] * 1e3, t_collective_ms=rf["t_collective"] * 1e3,
+                       dominant=rf["dominant"], flops_per_dev=rf["flops"],
+                       flops_by_dtype=r["flops_by_dtype"],
+                       useful_flops_ratio=r["useful_flops_ratio"],
+                       trace_s=r["seconds_trace"], card=card)
+        print("  dryrun_split " + json.dumps(row), flush=True)
+    print(f"  {len(done)} cells traced in {time.perf_counter() - t0:.1f} s ({DRYRUN_WORKERS} "
+          "processes)", flush=True)
+    smoke.check(all(r["status"] in ("ok", "skipped") for r in done), "a cell did not trace")
+    smoke.check(any(r["status"] == "ok" for r in done), "no cell traced")
+
+
 def remat_vs_plain(smoke: Smoke, dev) -> None:
     """The grads of ``loss_fn`` (remat, the chunked CE, the q-chunked
     attention with each tile checkpointed) against the plain path's (no
@@ -3208,13 +3269,28 @@ def max_abs_diff(got, want) -> float:
 
 def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
     """The ssm, hybrid and encdec families on the LM's ``(data, model)``
-    mesh (phase "LM (data, model) mesh: ssm, hybrid, encdec"): one mesh of
-    :data:`MESH_LM_SHAPE` rank processes sharing the card for the three
-    :data:`MESH_FAMILIES`, a programs key each, released before the next.
-    Each family at full width and depth (bf16, flash attention where it has
-    attention): the ranks draw every weight from seed 0 and keep their
-    blocks, a prefill at its ``FAMILIES`` prompt and LM_BATCH rows (whisper
-    with the stub frontend's frames), :data:`MESH_FAMILY_GEN` decode steps
+    mesh (phase "LM (data, model) mesh: ssm, hybrid, encdec"), as
+    :func:`mesh_families` serves and trains them: the three
+    :data:`MESH_FAMILIES` on one mesh."""
+    return mesh_families(smoke, dev, MESH_FAMILIES, "families")
+
+
+def lm_mesh_vlm_path(smoke: Smoke, dev) -> dict:
+    """phi-3-vision-4.2b (:data:`MESH_VLM`, the vlm family: the
+    transformer's mesh branches with its stub patches before the prompt) on
+    a mesh of its own (phase "LM mesh (phi-3-vision-4.2b, 2 x 2, one
+    card)"), as :func:`mesh_families` serves and trains the families."""
+    return mesh_families(smoke, dev, (MESH_VLM,), "vlm")
+
+
+def mesh_families(smoke: Smoke, dev, archs: tuple, label: str) -> dict:
+    """``archs`` on the LM's ``(data, model)`` mesh: one mesh of
+    :data:`MESH_LM_SHAPE` rank processes sharing the card, a programs key
+    an arch, released before the next. Each at full width and depth (bf16,
+    flash attention where it has attention): the ranks draw every weight
+    from seed 0 and keep their blocks, a prefill at its ``FAMILIES`` prompt
+    and LM_BATCH rows (whisper with the stub frontend's frames, the VLM
+    after its stub patches), :data:`MESH_FAMILY_GEN` decode steps
     fed the unsharded model's greedy tokens, each held to the unsharded
     model's logits (LM_LOGIT_ATOL); flash launches a rank a prefill as
     :func:`flash_per_serve` counts a prefill's. Then one train step at full
@@ -3223,9 +3299,11 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
     the unsharded loss (:data:`MESH_LOSS_ATOL`). An ``lm_mesh {...}`` line a
     family: init seconds, prefill ms, decode ms a step, train step ms, the
     collectives of each call per axis, flash launches and peak memory a
-    rank, the logit and loss differences. The unsharded references run
-    first, their weights freed before the ranks start; the ranks close in a
-    ``finally`` and every exit code must be 0."""
+    rank, the logit and loss differences; then an ``lm_mesh_<label>_summary``
+    line (times, loss differences and ``model`` collective calls a call).
+    The unsharded references run first, their weights freed before the
+    ranks start; the ranks close in a ``finally`` and every exit code must
+    be 0."""
     import dataclasses
 
     from repro_torch.configs import ShapeSpec, get_config
@@ -3242,16 +3320,17 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
     rng = np.random.default_rng(1)
     cells = {}
     t0 = time.perf_counter()  # the unsharded references
-    for arch in MESH_FAMILIES:
+    for arch in archs:
         cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
         layers, seq = MESH_FAMILY_TRAIN[arch]
         tcfg = dataclasses.replace(cfg, num_layers=layers, attn_impl="reference")
         prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_of[arch])))
         extra = {k: torch.as_tensor(v).to(dev) for k, v in stub_inputs(cfg, LM_BATCH, 2).items()}
+        patches = cfg.num_patches if cfg.family == "vlm" else 0  # positions before the tokens
         tbatch = {"tokens": torch.as_tensor(
-            rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, seq + 1))).to(dev),
+            rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, seq - patches + 1))).to(dev),
             **{k: torch.as_tensor(v).to(dev) for k, v in stub_inputs(cfg, TRAIN_BATCH, 3).items()}}
-        max_len = prompts.shape[1] + MESH_FAMILY_GEN
+        max_len = patches + prompts.shape[1] + MESH_FAMILY_GEN
         model = api.init_params(cfg, seed=0, device=dev)
         ctx = Ctx(cfg)
         want_prefill, state = api.prefill(ctx, model, prompts.to(dev), max_len, batch=extra)
@@ -3270,7 +3349,7 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
                            tbatch=tbatch, max_len=max_len, want_prefill=want_prefill.float(),
                            tokens=tokens, want_decode=want_decode, want_loss=want_loss)
     torch.cuda.synchronize()
-    print(f"  unsharded references ({', '.join(MESH_FAMILIES)}: prefill, {MESH_FAMILY_GEN} decode "
+    print(f"  unsharded references ({', '.join(archs)}: prefill, {MESH_FAMILY_GEN} decode "
           f"steps, train-cut loss): {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -3339,14 +3418,16 @@ def lm_mesh_families_path(smoke: Smoke, dev) -> dict:
                    "loss": metrics["loss"], "unsharded_loss": c["want_loss"],
                    "loss_diff": loss_diff, "grad_norm": metrics["grad_norm"]}
             print("  lm_mesh " + json.dumps(row), flush=True)
-            summary[arch] = {k: row[k] for k in ("prefill_ms", "decode_ms_a_step",
-                                                 "train_step_ms", "loss_diff")}
+            summary[arch] = {**{k: row[k] for k in ("prefill_ms", "decode_ms_a_step",
+                                                    "train_step_ms", "loss_diff")},
+                             "model_calls": {call: c["model"]["calls"]
+                                             for call, c in row["collectives"].items()}}
     finally:
         mesh.close()
-        print(f"  lm mesh (families) closed: rank exit codes {mesh.exit_codes}", flush=True)
+        print(f"  lm mesh ({label}) closed: rank exit codes {mesh.exit_codes}", flush=True)
     smoke.check(mesh.exit_codes == [0] * mesh.size, f"a rank did not exit cleanly: {mesh.exit_codes}")
     summary["mesh_seconds"] = time.perf_counter() - t0
-    print("  lm_mesh_families_summary " + json.dumps(summary), flush=True)
+    print(f"  lm_mesh_{label}_summary " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -3358,7 +3439,8 @@ def flash_at_rank_shapes(smoke: Smoke, dev) -> None:
     of them padded to 8); zamba2-2.7b's shared attention (16 and 16, D 80,
     causal, its 2048-token prompt); whisper-small's encoder (6 and 6, D 64,
     non-causal over 1500 frames) and cross attention (its 224-token prompt
-    over the 1500 frames)."""
+    over the 1500 frames); phi-3-vision-4.2b (16 and 16, D 96, causal over
+    its 576 patches and 1472 tokens)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain, flash_attn, kernel_block_k,
     )
@@ -3371,7 +3453,8 @@ def flash_at_rank_shapes(smoke: Smoke, dev) -> None:
             ("padded heads", 4, 4, 1, LM_PROMPT, LM_PROMPT, 128, True),
             ("zamba2 rank", 16, 16, 0, 2048, 2048, 80, True),
             ("whisper encoder rank", 6, 6, 0, 1500, 1500, 64, False),
-            ("whisper cross rank", 6, 6, 0, 224, 1500, 64, False)):
+            ("whisper cross rank", 6, 6, 0, 224, 1500, 64, False),
+            ("phi-3-vision rank", 16, 16, 0, 2048, 2048, 96, True)):
         q, k, v = (torch.randn((b * h, n, d), generator=gen).to(dev, torch.bfloat16)
                    for h, n in ((hq, sq), (hkv, skv), (hkv, skv)))
         if pad:  # the padded heads attend over zero K/V

@@ -9,7 +9,8 @@ real shapes and record what they would move. The model code runs as it runs
 on a real mesh: it calls the same collectives through ``models/sharding.py``,
 so the counts are the real mesh's by construction. Per device and step:
 
-    compute    = matmul FLOPs (``torch.utils.flop_counter``'s formulas) over
+    compute    = matmul FLOPs (``torch.utils.flop_counter``'s formulas) and
+                 those of ``torch.linalg.vecdot`` (2 a multiply-add) over
                  the peak of their type: bf16 on the tensor cores, float32
                  outside them
     memory     = operand plus output bytes of every aten op (views and
@@ -18,7 +19,10 @@ so the counts are the real mesh's by construction. Per device and step:
     collective = ring-cost wire bytes of every collective over the link
                  bandwidth
 
-The flash kernel is a ctypes launch the dispatcher cannot see: under a trace
+``torch.linalg.vecdot`` reaches the dispatcher as an elementwise product and
+a sum, so under a trace it is counted where it is called (:func:`_vecdots`),
+as the HLO counts a dot over the same dim. The flash kernel is
+a ctypes launch the dispatcher cannot see: under a trace
 its calls return an empty output and count ``4 D`` FLOPs a visible (q, k)
 pair, the formula ``chip_smoke.py`` bounds the kernel with. The peaks come
 from the port's machine file (:func:`~repro_torch.machine.machine.default_machine`:
@@ -251,6 +255,25 @@ class Tracer(TorchDispatchMode):
         return out
 
 
+@contextlib.contextmanager
+def _vecdots(tracer: Tracer):
+    """``torch.linalg.vecdot``'s calls under a trace, recomputed checkpoints
+    included, count 2 FLOPs a multiply-add by the first operand's type."""
+    vecdot = torch.linalg.vecdot
+
+    def counted(x, y, *args, **kwargs):
+        out = vecdot(x, y, *args, **kwargs)
+        dim = kwargs.get("dim", args[0] if args else -1)
+        tracer.add_flops(x.dtype, 2.0 * out.numel() * torch.broadcast_shapes(x.shape, y.shape)[dim])
+        return out
+
+    torch.linalg.vecdot = counted
+    try:
+        yield
+    finally:
+        torch.linalg.vecdot = vecdot
+
+
 def flash_pairs(sq: int, skv: int, causal: bool, window: "int | None") -> int:
     """(q, k) pairs the flash kernel's mask leaves visible, q aligned to the
     kv tail (as the kernel aligns its causal mask and window)."""
@@ -297,11 +320,12 @@ class Trace:
 
 
 def trace(fn) -> tuple:
-    """``fn()`` under a :class:`Tracer` (and the flash stand-in); returns
-    (its result, the :class:`Trace`). The result is held while the trace is
-    read, so what it returns counts as alive at the end."""
+    """``fn()`` under a :class:`Tracer` (with :func:`_vecdots` and the
+    flash stand-in); returns (its result, the :class:`Trace`). The result is
+    held while the trace is read, so what it returns counts as alive at the
+    end."""
     tracer = Tracer()
-    with _flash_stand_in(tracer), tracer:
+    with _flash_stand_in(tracer), _vecdots(tracer), tracer:
         out = fn()
     return out, Trace(flops={str(k).replace("torch.", ""): v for k, v in tracer.flops.items()},
                       bytes_hbm=tracer.bytes_hbm, temp_peak_bytes=tracer.peak,

@@ -79,13 +79,6 @@ class Ctx:
         lead = (None,) * (x.dim() - 1)
         return self.cs(x, *lead, dst, src=(*lead, src))
 
-    def heads_layout(self) -> "str | None":
-        """The layout of a head-major dim that is split into heads of its own
-        (rwkv6's time mix, Mamba-2's inner stream): ``"heads"`` (this rank's
-        whole heads) when the rules shard 4-D heads, else None (every head,
-        the work replicated over ``model``)."""
-        return "heads" if self.axes("heads4d") else None
-
     def reduce(self, x: torch.Tensor, *axes, over: str = "model") -> torch.Tensor:
         """``x`` holds partial sums over the mesh axis ``over`` and is laid
         out as ``axes`` elsewhere: the sum, laid out as ``axes``

@@ -18,7 +18,7 @@ split. The depthwise conv runs over this rank's block of the xBC channels,
 as ``conv_w``, ``conv_b`` and the conv tail hold them, and the conv's output
 is gathered whole (B and C are shared by every head). The scan, the D skip,
 the gate and the output norm run over this rank's heads (every head when the
-rules do not shard 4-D heads, :meth:`Ctx.heads_layout`); the norm's mean
+rules do not shard 4-D heads, :func:`_heads_layout`); the norm's mean
 square is summed over ``model``, and ``out_proj``'s partial sums are
 reduced into the residual layout.
 """
@@ -108,6 +108,13 @@ def _chunk(hstate, xx, bb, cc, ll, causal_incl):
     return y.permute(0, 2, 1, 3), h_new
 
 
+def _heads_layout(ctx: Ctx) -> "str | None":
+    """The inner stream's head layout: ``"heads"`` (this rank's whole heads)
+    when the rules shard 4-D heads, else None (every head, the work
+    replicated over ``model``)."""
+    return "heads" if ctx.axes("heads4d") else None
+
+
 def _out_norm(ctx: Ctx, y: torch.Tensor, w: torch.Tensor, hs: "str | None") -> torch.Tensor:
     """rmsnorm over the whole inner dim of y, which holds the columns of the
     layout ``hs``: with this rank's heads the mean square is summed over
@@ -126,7 +133,7 @@ def mamba_sublayer(ctx: Ctx, p: Mamba, x: torch.Tensor, state: MambaLayerState |
     (c x c) decays recomputed in the backward). On a mesh (module
     docstring) the state holds this rank's heads and conv channels."""
     cfg = ctx.cfg
-    hs = ctx.heads_layout()
+    hs = _heads_layout(ctx)
     x = whole_positions(ctx, x)
     bsz, s, _ = x.shape
     di, n, h, dconv = dims(cfg)

@@ -13,14 +13,21 @@ On the ``(data, model)`` mesh (``models/layers.py``) the residual stream is
 in the residual layout between sublayers. Each sublayer gathers its input's
 positions (the token shift and the scan run along the whole sequence), and
 its weights are gathered to their layout at use. The time mix projects
-column-parallel: a rank computes its heads' columns of r, k, v, g and of the
-decay, and runs the scan over its heads (every head when the rules do not
-shard 4-D heads, :meth:`Ctx.heads_layout`). The mixes ``mu_*`` and
-``cmu_*`` are stored sharded over d but multiply the whole input, so they
-are gathered whole. ``w_o`` and the channel mix's ``cw_v`` are
-row-parallel: their partial sums are reduced into the residual layout, and
-the channel mix's gate ``sigmoid(xr @ cw_r)`` is relaid there from its
-columns before the product.
+column-parallel: a rank computes its ``d / model`` columns of r, k, v, g and
+of the decay (the ``heads`` layout), and runs the scan over a block of
+``ceil(H / model)`` whole heads, the heads padded with zero heads at the end
+where ``model`` does not divide them, as GSPMD splits an uneven dim
+(:func:`_to_heads`; the block is the ``heads`` layout itself where it does
+divide). Over a sequence the decay LoRA's down-projection runs over the
+rank's block of the rows (gathered before the up-projection); one token's
+runs on every row. Where the heads are padded the decode state holds every
+head on every ``model`` rank (``heads4d`` unsharded, the reference's
+``state_specs``): a decode step takes its block and gathers it back. The
+mixes ``mu_*`` and ``cmu_*`` are stored sharded over d but multiply the
+whole input, so they are gathered whole. ``w_o`` and the channel mix's
+``cw_v`` are row-parallel: their partial sums are reduced into the residual
+layout, and the channel mix's gate ``sigmoid(xr @ cw_r)`` is relaid there
+from its columns before the product.
 """
 from __future__ import annotations
 
@@ -123,7 +130,7 @@ def _chunk(state, rr, kk, vv, ll, u, strict):
     k_dec = (kk * (-L_inc).exp()).permute(0, 2, 3, 1)  # (B, H, M, c)
     vh = vv.permute(0, 2, 1, 3)  # (B, H, c, M)
     A = torch.matmul(q_dec, k_dec).masked_fill(~strict, 0.0)  # (B, H, t, i), i < t
-    diag = (rr * u * kk).sum(-1).permute(0, 2, 1)  # (B, H, t): the bonus term
+    diag = torch.linalg.vecdot(rr * u, kk).permute(0, 2, 1)  # (B, H, t): the bonus term
     o = torch.matmul(A, vh) + diag[..., None] * vh + torch.matmul(q_dec, state)
     last = L_inc[:, -1]  # (B, H, M)
     k_tail = (kk * (last[:, None] - L_inc).exp()).permute(0, 2, 3, 1)  # (B, H, M, c)
@@ -143,36 +150,105 @@ def _weights(ctx: Ctx, p: Block):
     return w
 
 
-def _head_vectors(ctx: Ctx, p):
-    """(the bonus, ln_x's weight) in the time mix's head layout."""
-    hs = ctx.heads_layout()
-    return ctx.cols(p.u_bonus, hs, "heads"), ctx.cols(p.ln_x.w, hs, None)
+def _blocks(ctx: Ctx) -> tuple[int, int, int]:
+    """(H, n, ch): the heads, the ranks of the ``heads`` axes (1 without a
+    mesh), and the heads a rank's scan runs, ``ceil(H / n)``."""
+    h = ctx.cfg.d_model // HEAD
+    n = 1 if ctx.mesh is None else sh.axis_size(ctx.mesh, ctx.axes("heads"))
+    return h, n, -(-h // n)
+
+
+def _padded(ctx: Ctx) -> bool:
+    """Whether the scan's heads are padded: ``n`` does not divide them, so a
+    rank's block of whole heads is not its ``heads`` columns."""
+    h, n, _ = _blocks(ctx)
+    return h % n != 0
+
+
+def _to_heads(ctx: Ctx, t: torch.Tensor, src: "str | None" = "heads") -> torch.Tensor:
+    """t's last dim (the d channels, laid out as ``src``) as this rank's
+    block of the scan's heads: its ``heads`` columns where ``n`` divides the
+    heads, else every channel, padded with zero heads to ``n * ch`` and the
+    rank's ``ch`` kept (GSPMD's split of an uneven dim)."""
+    if not _padded(ctx):
+        return ctx.cols(t, "heads", src)
+    h, n, ch = _blocks(ctx)
+    whole = F.pad(ctx.cols(t, None, src), (0, (n * ch - h) * HEAD))
+    return whole.narrow(-1, ctx.index(ctx.axes("heads")) * ch * HEAD, ch * HEAD)
+
+
+def _from_heads(ctx: Ctx, t: torch.Tensor) -> torch.Tensor:
+    """t's last dim from the scan's block of heads to the ``heads`` columns
+    (:func:`_to_heads` undone)."""
+    if not _padded(ctx):
+        return t
+    whole = sh.all_gather(ctx.mesh, t, ctx.axes("heads"), -1)[..., :ctx.cfg.d_model]
+    return ctx.cols(whole, "heads", None)
+
+
+def _state_in(ctx: Ctx, s: torch.Tensor) -> torch.Tensor:
+    """A wkv state (B, H_local, M, M) as the decode state holds it (every
+    head where the scan's heads are padded) -> the scan's block."""
+    if not _padded(ctx):
+        return s
+    h, n, ch = _blocks(ctx)
+    return F.pad(s, (0, 0, 0, 0, 0, n * ch - h)).narrow(1, ctx.index(ctx.axes("heads")) * ch, ch)
+
+
+def _state_out(ctx: Ctx, s: torch.Tensor) -> torch.Tensor:
+    """The scan's block of a wkv state -> the decode state's layout."""
+    if not _padded(ctx):
+        return s
+    return sh.all_gather(ctx.mesh, s, ctx.axes("heads"), 1)[:, :_blocks(ctx)[0]]
 
 
 def _time_mix_out(ctx: Ctx, p, o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The gated output (the time mix's head layout) through ``w_o``: on a
-    mesh this rank's rows, the partial sums reduced into the residual
-    layout (``("batch", None)`` for one token)."""
-    o = ctx.cols(o * F.silu(g), "heads", ctx.heads_layout())
-    out = o @ p.w_o
+    """The normed output (the scan's heads) gated and through ``w_o``: on a
+    mesh this rank's ``heads`` rows, the partial sums reduced into the
+    residual layout (``("batch", None)`` for one token)."""
+    out = (_from_heads(ctx, o) * F.silu(g)) @ p.w_o
     return ctx.reduce(out, *(RES if out.dim() == 3 else ("batch", None)))
 
 
+def _lora(ctx: Ctx, p, wx: torch.Tensor) -> torch.Tensor:
+    """The decay's LoRA ``(wx @ w_lora_a) @ w_lora_b`` in float32, its
+    columns laid out as ``w_lora_b``'s. On a mesh a sequence's (B, S, D)
+    down-projection runs over this rank's block of the rows (every position
+    of every row, padded to a multiple of the ``heads`` ranks, as GSPMD
+    pads), whose results are gathered for the up-projection; one token's
+    (B, D) rows run whole, where the gather would cost more than the
+    product."""
+    a = p.w_lora_a.float()
+    axes = ctx.axes("heads")
+    if wx.dim() == 2 or not axes:
+        return (wx.float() @ a) @ p.w_lora_b
+    rows = wx.reshape(-1, wx.shape[-1])
+    n = sh.axis_size(ctx.mesh, axes)
+    nb = -(-rows.shape[0] // n)
+    blk = F.pad(rows, (0, 0, 0, nb * n - rows.shape[0])).narrow(0, ctx.index(axes) * nb, nb)
+    down = sh.all_gather(ctx.mesh, blk.float() @ a, axes, 0)[:rows.shape[0]]
+    return (down @ p.w_lora_b).reshape(*wx.shape[:-1], -1)
+
+
 def _projections(ctx: Ctx, p, mix):
-    """r, k, v, g (each ``mix(mu) @ w``) and the data-dependent log-decay
-    exponent (base + LoRA, float32), in the time mix's head layout: the
-    columns this rank projects, gathered when every head is here."""
-    hs = ctx.heads_layout()
-    r, k, v, g = (ctx.cols(mix(mu) @ w, hs, "heads") for mu, w in (
+    """r, k, v (float32, the scan's heads), g (the ``heads`` columns) and
+    the log-decay exponent (base + LoRA, float32, the scan's heads). Each
+    ``mix(mu) @ w`` is projected column-parallel, the LoRA by
+    :func:`_lora`. Where the scan's heads are padded, r, k, v and the decay
+    reach them in one collective."""
+    r, k, v, g = (mix(mu) @ w for mu, w in (
         (p.mu_r, p.w_r), (p.mu_k, p.w_k), (p.mu_v, p.w_v), (p.mu_g, p.w_g)))
-    lora = (mix(p.mu_w).float() @ p.w_lora_a.float()) @ ctx.cols(p.w_lora_b, hs, "heads")
-    return r, k, v, g, ctx.cols(p.w_decay, hs, "heads") + lora
+    w_log = p.w_decay + _lora(ctx, p, mix(p.mu_w))
+    r, k, v = r.float(), k.float(), v.float()
+    if _padded(ctx):
+        r, k, v, w_log = _to_heads(ctx, torch.stack([r, k, v, w_log]))
+    return r, k, v, g, w_log
 
 
 def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
                       tm_last: torch.Tensor | None):
     """x (B, S, D), every position -> (out (B, S, D) in the residual layout,
-    the final state (B, H, M, M) of the local heads, x's last row). The
+    the final state (B, H, M, M) of the scan's heads, x's last row). The
     sequence is zero-padded to a chunk multiple: r, k and v pads add nothing
     and log-decay pads of 0 leave the state as it is. Under grad each chunk
     is checkpointed."""
@@ -184,16 +260,15 @@ def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
     def mix(mu):
         return x * mu + xs * (1 - mu)
 
-    u, ln_x = _head_vectors(ctx, p)
     r, k, v, g, w_log = _projections(ctx, p, mix)
-    d = r.shape[-1]  # the local heads' width
+    d = r.shape[-1]  # the scan's heads' width
     h = d // HEAD
     r, k, v = (t.reshape(b, s, h, HEAD) for t in (r, k, v))
     log_w = -w_log.reshape(b, s, h, HEAD).exp()  # in (-inf, 0)
-    u = u.reshape(h, HEAD)
+    u = _to_heads(ctx, p.u_bonus).reshape(h, HEAD)
 
     s_pad = -(-s // c) * c
-    r, k, v, log_w = (F.pad(t.float(), (0, 0, 0, 0, 0, s_pad - s)) for t in (r, k, v, log_w))
+    r, k, v, log_w = (F.pad(t, (0, 0, 0, 0, 0, s_pad - s)) for t in (r, k, v, log_w))
     strict = torch.ones((c, c), dtype=torch.bool, device=x.device).tril(-1)
     step = remat(_chunk) if torch.is_grad_enabled() else _chunk
     state, outs = s0.float(), []
@@ -204,13 +279,13 @@ def _time_mix_chunked(ctx: Ctx, p: Block, x: torch.Tensor, s0: torch.Tensor,
     o = torch.cat(outs, dim=1).float()[:, :s]
     # per-head group norm, gate, output projection
     o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x.device), cfg.norm_eps)
-    o = (o.reshape(b, s, d) * ln_x).to(x.dtype)
+    o = (o.reshape(b, s, d) * _to_heads(ctx, p.ln_x.w, None)).to(x.dtype)
     return _time_mix_out(ctx, p, o, g), state, x[:, -1, :]
 
 
 def _time_mix_step(ctx: Ctx, p: Block, x1: torch.Tensor, s0: torch.Tensor, tm_last: torch.Tensor):
     """The exact one-token recurrence (decode). x1 (B, D) whole; s0 the
-    local heads' state."""
+    state of the scan's heads."""
     cfg = ctx.cfg
     b = x1.shape[0]
     xs = tm_last.to(x1.dtype)
@@ -218,19 +293,18 @@ def _time_mix_step(ctx: Ctx, p: Block, x1: torch.Tensor, s0: torch.Tensor, tm_la
     def mix(mu):
         return x1 * mu + xs * (1 - mu)
 
-    u, ln_x = _head_vectors(ctx, p)
     r, k, v, g, w_log = _projections(ctx, p, mix)
     d = r.shape[-1]
     h = d // HEAD
-    r, k, v = (t.reshape(b, h, HEAD).float() for t in (r, k, v))
+    r, k, v = (t.reshape(b, h, HEAD) for t in (r, k, v))
     w = (-w_log.reshape(b, h, HEAD).exp()).exp()
-    u = u.reshape(h, HEAD)
+    u = _to_heads(ctx, p.u_bonus).reshape(h, HEAD)
     s0 = s0.float()
     kv = k[..., :, None] * v[..., None, :]  # (B, H, M, M)
     o = torch.matmul(r[:, :, None, :], s0 + u[None, :, :, None] * kv)[:, :, 0]  # (B, H, M)
     s_new = s0 * w[..., None] + kv
     o = rmsnorm(o, torch.ones(HEAD, dtype=torch.float32, device=x1.device), cfg.norm_eps)
-    o = (o.reshape(b, d) * ln_x).to(x1.dtype)
+    o = (o.reshape(b, d) * _to_heads(ctx, p.ln_x.w, None)).to(x1.dtype)
     return _time_mix_out(ctx, p, o, g), s_new, x1
 
 
@@ -267,11 +341,8 @@ def _block_out(ctx: Ctx, p: Block, x, s0):
 
 
 def _zero_state(ctx: Ctx, b: int, device) -> torch.Tensor:
-    """The zero wkv state of ``b`` rows over the local heads."""
-    h = ctx.cfg.d_model // HEAD
-    if ctx.heads_layout():
-        h //= ctx.size("model")
-    return torch.zeros((b, h, HEAD, HEAD), dtype=torch.float32, device=device)
+    """The zero wkv state of ``b`` rows over the scan's heads."""
+    return torch.zeros((b, _blocks(ctx)[2], HEAD, HEAD), dtype=torch.float32, device=device)
 
 
 def backbone(ctx: Ctx, params: RWKV6, tokens: torch.Tensor) -> torch.Tensor:
@@ -319,8 +390,8 @@ def prefill(ctx: Ctx, params: RWKV6, tokens: torch.Tensor, max_len: int = 0):
     s0 = _zero_state(ctx, tokens.shape[0], x.device)
     states = []
     for blk in params.blocks:
-        x, st = _block(ctx, blk, x, s0)
-        states.append(st)
+        x, (s_new, tm_new, cm_new) = _block(ctx, blk, x, s0)
+        states.append((_state_out(ctx, s_new), tm_new, cm_new))
     x = rmsnorm(_last_position(ctx, x), params.final_norm.w, ctx.cfg.norm_eps)
     return _unembed(ctx, params, x), RWKVState(*(torch.stack(f) for f in zip(*states)))
 
@@ -333,11 +404,12 @@ def decode_step(ctx: Ctx, params: RWKV6, token: torch.Tensor, state: RWKVState):
     states = []
     for i, blk in enumerate(params.blocks):
         blk = _weights(ctx, blk)
-        h, s_new, tm_new = _time_mix_step(ctx, blk, rmsnorm(x, blk.ln1.w, eps), state.s[i], state.tm_x[i])
+        h, s_new, tm_new = _time_mix_step(ctx, blk, rmsnorm(x, blk.ln1.w, eps),
+                                          _state_in(ctx, state.s[i]), state.tm_x[i])
         x = x + h
         h2, cm_new = _channel_mix(ctx, blk, rmsnorm(x, blk.ln2.w, eps), state.cm_x[i])
         x = x + h2
-        states.append((s_new, tm_new, cm_new))
+        states.append((_state_out(ctx, s_new), tm_new, cm_new))
     x = rmsnorm(x, params.final_norm.w, eps)
     return _unembed(ctx, params, x)[:, None, :], RWKVState(*(torch.stack(f) for f in zip(*states)))
 

@@ -1,5 +1,5 @@
 """The dry-run's traced rank against a real mesh: for reduced cells of the
-dense, MoE (each expert-parallel mode), SSM, hybrid and encdec families,
+dense, MoE (each expert-parallel mode), SSM, hybrid, encdec and VLM families,
 the collective calls per axis that rank 0's trace on ``MeshShape((2, 2))``
 records equal those every rank of a 4-rank gloo CPU mesh of that shape
 counts for the same prefill, decode step and train step. And the MoE slot
@@ -25,7 +25,7 @@ DIMS = (2, 2)
 B, S = 8, 16
 CELLS = [("llama3.2-3b", None), ("moonshot-v1-16b-a3b", "ep_push"),
          ("moonshot-v1-16b-a3b", "ep_pull"), ("rwkv6-3b", None), ("zamba2-2.7b", None),
-         ("whisper-small", None)]
+         ("whisper-small", None), ("phi-3-vision-4.2b", None)]
 MESH_TIMEOUT_S = 60.0
 TEST_LIMIT_S = 120
 
@@ -73,7 +73,8 @@ def test_traced_collective_calls_equal_the_gloo_mesh(mesh, arch, mode):
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S + 2)))
     extra = {k: torch.as_tensor(v) for k, v in stub_inputs(cfg, B, 1).items()}
-    pre_shape = ShapeSpec("p", "prefill", S + 2, B)
+    patches = cfg.num_patches if cfg.family == "vlm" else 0  # positions before the tokens
+    pre_shape = ShapeSpec("p", "prefill", patches + S + 2, B)
     dec_shape = dataclasses.replace(pre_shape, kind="decode")
     train_shape = ShapeSpec("t", "train", S, B)
     key = f"{arch}-{mode}"
@@ -88,7 +89,7 @@ def test_traced_collective_calls_equal_the_gloo_mesh(mesh, arch, mode):
     pre.release()
     train = build_programs(cfg, mesh, train_shape, key=f"{key}-train")
     train.init(0)
-    train.step({"tokens": toks[:, :S + 1], **extra})
+    train.step({"tokens": toks[:, :S - patches + 1], **extra})
     assert _calls(train) == _traced(cfg, train_shape)
     train.release()
 

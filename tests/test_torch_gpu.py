@@ -1047,56 +1047,64 @@ def test_lm_mesh_families_float32_full_width_match_the_unsharded_model(cuda, arc
     assert mesh.exit_codes == [0] * 4
 
 
-def test_lm_mesh_zamba2_full_width_and_depth_on_four_cards(cuda):
-    """zamba2-2.7b at full width and depth (54 Mamba-2 layers, the shared
-    attention block at 9 points) on a 2 x 2 mesh, one nccl rank a card: a
-    4 x 2048 prefill with flash attention (9 launches a rank), 2 decode
-    steps fed the unsharded model's greedy tokens and one train step at 4 x
-    2048 (reference attention, remat, 2 microbatches), held to the unsharded
-    model on card 0 (logits 0.5, loss 0.01). Prints the times and each
-    card's peak memory."""
+def _family_on_four_cards(cuda, arch: str, prompt: int, positions: int) -> None:
+    """``arch`` at full width and depth on a 2 x 2 mesh, one nccl rank a
+    card: a prefill of 4 rows of ``prompt`` tokens (after the stub frames or
+    patches) with flash attention, 2 decode steps fed the unsharded model's
+    greedy tokens and one train step over ``positions`` a row (reference
+    attention, remat, the arch's microbatches), held to the unsharded model
+    on card 0 (logits 0.5, loss 0.01). Prints the times, each card's peak
+    memory and the collectives."""
     import dataclasses
     import time
 
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import stub_inputs
     from repro_torch.launch.steps import (
-        build_decode_programs, build_prefill_programs, build_train_programs,
+        MICROBATCHES, build_decode_programs, build_prefill_programs, build_train_programs,
     )
     from repro_torch.models import Ctx, api
     from repro_torch.optim import AdamWConfig
 
     _lm_mesh_needs(4)
-    cfg = dataclasses.replace(get_config("zamba2-2.7b"), attn_impl="flash")
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     tcfg = dataclasses.replace(cfg, attn_impl="reference")
+    patches = cfg.num_patches if cfg.family == "vlm" else 0
+    flash = {"ssm": 0, "hybrid": cfg.num_layers // (cfg.shared_attn_period or cfg.num_layers),
+             "encdec": cfg.encoder_layers + 2 * cfg.num_layers}.get(cfg.family, cfg.num_layers)
     rng = np.random.default_rng(1)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2048))).to(cuda)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 2049))).to(cuda)}
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, prompt))).to(cuda)
+    extra = {k: torch.as_tensor(v).to(cuda) for k, v in stub_inputs(cfg, 4, 2).items()}
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (4, positions - patches + 1))).to(cuda),
+        **{k: torch.as_tensor(v).to(cuda) for k, v in stub_inputs(cfg, 4, 3).items()}}
+    max_len = patches + prompt + 2
     model = api.init_params(cfg, seed=0, device=cuda)
     ctx = Ctx(cfg)
-    want, caches = api.prefill(ctx, model, prompts, 2050)
+    want, state = api.prefill(ctx, model, prompts, max_len, batch=extra)
     tokens, want_dec = [want.argmax(-1)], []
     for _ in range(2):
-        logits, caches = api.decode_step(ctx, model, tokens[-1], caches)
+        logits, state = api.decode_step(ctx, model, tokens[-1], state)
         want_dec.append(logits.float())
         tokens.append(logits.argmax(-1))
     with torch.no_grad():
         want_loss = float(api.loss_fn(Ctx(tcfg), model, batch))
-    del model, caches
+    del model, state
     torch.cuda.empty_cache()
     mesh = make_mesh((2, 2), ("data", "model"), device=cuda, timeout=600)
     try:
         assert mesh.backend == "nccl"
-        shape = ShapeSpec("p", "prefill", 2050, 4)
+        shape = ShapeSpec("p", "prefill", max_len, 4)
         pre = build_prefill_programs(cfg, mesh, shape)
         dec = build_decode_programs(cfg, mesh, dataclasses.replace(shape, kind="decode"))
         pre.init(seed=0)
         t0 = time.perf_counter()
-        got = pre.step({"tokens": prompts})
+        got = pre.step({"tokens": prompts, **extra})
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_err = float((got.float() - want.float()).abs().max())
         assert prefill_err <= 0.5
-        assert all(st["flash_launches"] == 9 for st in pre.last_stats)
+        assert all(st["flash_launches"] == flash for st in pre.last_stats)
         errs, ms = [], []
         for i in range(2):
             t0 = time.perf_counter()
@@ -1106,15 +1114,15 @@ def test_lm_mesh_zamba2_full_width_and_depth_on_four_cards(cuda):
         assert max(errs) <= 0.5, errs
         serve_mem = _mesh_memory_gib(dec)
         pre.release()
-        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", 2048, 4),
+        train = build_train_programs(tcfg, mesh, ShapeSpec("t", "train", positions, 4),
                                      AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4))
-        assert train.microbatches == 2
+        assert train.microbatches == MICROBATCHES.get(arch, 1)
         train.init(seed=0)
         t0 = time.perf_counter()
         metrics = train.step(batch)
         step_ms = (time.perf_counter() - t0) * 1e3
         assert abs(metrics["loss"] - want_loss) <= 0.01, (metrics, want_loss)
-        print(f"\nlm_mesh four cards zamba2-2.7b ({_card_line()}): launch to ready "
+        print(f"\nlm_mesh four cards {arch} ({_card_line()}): launch to ready "
               f"{mesh.ready_seconds:.2f} s; prefill {prefill_ms:.1f} ms (first call, max |logit "
               f"diff| {prefill_err:.4f}); decode ms {ms} (max |diff| {max(errs):.4f}); train step "
               f"{step_ms:.1f} ms, loss {metrics['loss']:.6f} vs {want_loss:.6f}; peak GiB a card "
@@ -1123,6 +1131,27 @@ def test_lm_mesh_zamba2_full_width_and_depth_on_four_cards(cuda):
     finally:
         mesh.close()
     assert mesh.exit_codes == [0] * 4
+
+
+def test_lm_mesh_zamba2_full_width_and_depth_on_four_cards(cuda):
+    """zamba2-2.7b at full width and depth (54 Mamba-2 layers, the shared
+    attention block at 9 points) on a 2 x 2 mesh, one nccl rank a card: a
+    4 x 2048 prefill with flash attention (9 launches a rank), 2 decode
+    steps fed the unsharded model's greedy tokens and one train step at 4 x
+    2048 (reference attention, remat, 2 microbatches), held to the unsharded
+    model on card 0 (logits 0.5, loss 0.01). Prints the times and each
+    card's peak memory."""
+    _family_on_four_cards(cuda, "zamba2-2.7b", 2048, 2048)
+
+
+@pytest.mark.parametrize("arch,prompt,positions", [
+    ("rwkv6-3b", 2048, 2048), ("whisper-small", 224, 448), ("phi-3-vision-4.2b", 1472, 2048)])
+def test_lm_mesh_families_full_width_and_depth_on_four_cards(cuda, arch, prompt, positions):
+    """rwkv6-3b (4 x 2048), whisper-small (224 tokens over its 1500 frames;
+    training at its decoder's 448 positions) and phi-3-vision-4.2b (576 stub
+    patches, then 1472 tokens) at full width and depth on four cards, as
+    zamba2-2.7b's test runs it."""
+    _family_on_four_cards(cuda, arch, prompt, positions)
 
 
 def test_lm_mesh_moonshot_full_depth_ep_push_on_four_cards(cuda):

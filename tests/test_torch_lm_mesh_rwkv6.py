@@ -1,8 +1,9 @@
 """rwkv6 (the ssm family) on the port's ``(data, model)`` mesh against the
 JAX package's sharded programs (``tests/torch_lm_mesh_families.py``). The
 reduced config has 2 heads: on the (4, 2) mesh each rank runs the time
-mix's scan over its one head, on the (2, 4) mesh, where the heads do not
-divide ``model``, over both (the reference pads that split)."""
+mix's scan over its one head; on the (2, 4) mesh, where the heads do not
+divide ``model``, they are padded to 4 as GSPMD pads the split, each rank
+runs one, and the decode state holds both on every rank."""
 from torch_lm_mesh_families import (  # noqa: F401 (fixtures)
     _close_meshes, _time_limit, check_init, check_serve, check_train, world,
 )

@@ -1,13 +1,14 @@
 """Shared set-up of the LM-mesh family tests
-(``tests/test_torch_lm_mesh_{rwkv6,zamba2,whisper}.py``): the ssm, hybrid
-and encdec families on the port's ``(data, model)`` mesh against the JAX
-package's sharded programs.
+(``tests/test_torch_lm_mesh_{rwkv6,zamba2,whisper,phi3v}.py``): the ssm,
+hybrid, encdec and vlm families on the port's ``(data, model)`` mesh
+against the JAX package's sharded programs.
 
 The reference runs in a subprocess on a forced 8-device host mesh, once for
 each of the (4, 2) and (2, 4) meshes: its own ``launch/steps.py`` programs
 for the reduced config of one arch in float32 (prefill, 4 decode steps and
 the decode state after each, ``jax.value_and_grad`` of the loss under the
-train program's shardings, one train step). It saves its weights (every
+train program's shardings, one train step; the VLM's prompt is its stub
+patches, from the numpy seed, then the tokens). It saves its weights (every
 leaf that init leaves constant moved by noise, so that the comparison sees
 it) and results; the port loads the same weights onto 8 gloo rank processes
 of the same mesh shape and is held to them.
@@ -114,13 +115,17 @@ extra = {}
 if cfg.family == "encdec":
     extra["frames"] = data.standard_normal((B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
     out["frames"] = extra["frames"]
+if cfg.family == "vlm":
+    extra["patches"] = data.standard_normal((B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    out["patches"] = extra["patches"]
+L = S + G + (cfg.num_patches if cfg.family == "vlm" else 0)  # the caches' length
 with mesh:
-    pre = steps.build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", S + G, B))
+    pre = steps.build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", L, B))
     logits, state = pre.step(params(), {"tokens": jnp.asarray(toks[:, :S]),
                                         **{k: jnp.asarray(v) for k, v in extra.items()}})
     out["prefill"] = np.array(logits)
     save_state("state_prefill", state)
-    dec = steps.build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", S + G, B))
+    dec = steps.build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", L, B))
     for i in range(G):
         logits, state = dec.step(params(), jnp.asarray(toks[:, S + i:S + i + 1]), state)
         out[f"decode{i}"] = np.array(logits)
@@ -226,11 +231,18 @@ def grads_close(got: dict, want: dict) -> None:
 
 
 def inputs(cfg, ref: dict, n: int) -> dict:
-    """The first ``n`` tokens of each row, and the frames (encdec)."""
+    """The first ``n`` tokens of each row, and the frames (encdec) or the
+    patches (vlm)."""
     batch = {"tokens": torch.as_tensor(ref["tokens"][:, :n]).long()}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.as_tensor(ref["frames"])
+    for name in ("frames", "patches"):
+        if name in ref:
+            batch[name] = torch.as_tensor(ref[name])
     return batch
+
+
+def n_patches(cfg) -> int:
+    """The positions before the prompt's tokens (the VLM's patches)."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
 
 
 def check_state(state, ref: dict, prefix: str) -> None:
@@ -244,8 +256,9 @@ def check_serve(mesh, ref: dict, arch: str, **upd) -> None:
     after each, against the reference's."""
     cfg = dataclasses.replace(TC.reduced_config(arch), **upd)
     key = f"{arch}-{upd.get('attn_impl', 'reference')}"
-    pre = build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", S + G, B), key=key)
-    dec = build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", S + G, B), key=key)
+    n = n_patches(cfg) + S + G
+    pre = build_prefill_programs(cfg, mesh, ShapeSpec("p", "prefill", n, B), key=key)
+    dec = build_decode_programs(cfg, mesh, ShapeSpec("d", "decode", n, B), key=key)
     pre.load(lm_params_from_numpy(cfg, tree(ref, "params/"), device="cpu"))
     close(pre.step(inputs(cfg, ref, S)), ref["prefill"], "prefill logits")
     check_state(pre.gather_state(), ref, "state_prefill")
@@ -254,7 +267,7 @@ def check_serve(mesh, ref: dict, arch: str, **upd) -> None:
         close(dec.step(toks[:, S + i:S + i + 1]), ref[f"decode{i}"], f"decode step {i}")
         state = dec.gather_state()
         if hasattr(state, "length"):
-            assert state.length == S + i + 1
+            assert state.length == n_patches(cfg) + S + i + 1
         check_state(state, ref, f"state{i}")
     assert set(pre.collectives()) <= {"data", "model"} and pre.collectives()["model"]["calls"] > 0
     pre.release()
