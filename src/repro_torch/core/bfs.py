@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import to_numpy
 from ..sparse.graph import PartitionedGraph
 from .strategies import Comm, MigratoryStrategy, TrafficStats
@@ -67,16 +68,20 @@ def bfs_rounds(
     parents, UNVISITED where unreached."""
     n = adj.shape[0] if n is None else n
     parents = torch.full((n,), UNVISITED, dtype=torch.int32, device=adj.device)
+    trace.count("sync.bfs_root")  # a host scalar stored on the card: a copy, then a wait
     parents[root] = root
     frontier = torch.zeros(n, dtype=torch.bool, device=adj.device)
+    trace.count("sync.bfs_root")
     frontier[root] = True
     for _ in range(max_rounds):
-        if not bool(frontier.any()):
-            break
-        nP = expand(adj, frontier)
-        newly = (parents == UNVISITED) & (nP != UNVISITED)
-        parents = torch.where(newly, nP, parents)
-        frontier = newly
+        with trace.span("bfs.round"):
+            trace.count("sync.bfs_frontier")
+            if not bool(frontier.any()):
+                break
+            nP = expand(adj, frontier)
+            newly = (parents == UNVISITED) & (nP != UNVISITED)
+            parents = torch.where(newly, nP, parents)
+            frontier = newly
     return parents
 
 
@@ -203,6 +208,7 @@ def bfs_traffic(g: PartitionedGraph, root: int, strategy: MigratoryStrategy) -> 
     destination; no migrations.
     """
     p = g.P
+    trace.count("sync.bfs_replay")  # the planes copied to the host: a wait
     adj = _adj_numpy(g)
     n_pad = adj.shape[0]
     owner = np.arange(n_pad) % p  # striped ownership (paper layout)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..device import resolve_device, to_numpy
 from ..sparse.csr import CSR, ell_coords
 from .strategies import MigratoryStrategy, TrafficStats
@@ -170,6 +171,7 @@ def spmv_bytes_moved(a: PartitionedELL, n: int, dtype_bytes: int = 4) -> int:
     """Bytes the paper's §5.1 bandwidth formula charges one SpMV with:
     sizeof(A) (true nonzeros: value + column index) + sizeof(x) + sizeof(y).
     """
+    trace.count("sync.spmv_nnz")
     nnz = int((a.cols >= 0).sum())
     return nnz * (dtype_bytes + 4) + (n + a.shape[0]) * dtype_bytes
 

@@ -39,7 +39,6 @@ class CacheEntry:
     executor: Callable[..., Any]
     compiled: bool = False  # first call completed
     compile_seconds: float = 0.0
-    hits: int = 0
     slot: int | None = None  # executor-pool placement pin (None = unpinned)
 
 
@@ -98,7 +97,6 @@ class PlanCache:
                 if slot is not None and entry.slot is None:
                     entry.slot = slot  # adopt: e.g. batch-run, pool-served
                 if entry.compiled:
-                    entry.hits += 1
                     self.hits += 1
                     return CompiledPlan(plan, entry.executor, cache_hit=True, entry=entry)
                 # entry exists but its first call never completed: still cold

@@ -18,6 +18,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.bfs import bfs_bytes_moved, bfs_traffic, teps
 from ..core.cost import bfs_cost_model, gsana_cost_model, spmv_cost_model
 from ..core.gsana import gsana_rw_bytes, layout_blk, layout_hcb, plan_stats, recall_at_k
@@ -71,8 +72,11 @@ def _derived_cached(kind: str, anchor: Any, extra: Any, compute: Callable[[], An
     hit = _DERIVED_MEMO.get(key)
     if hit is not None and hit[0]() is anchor:
         _DERIVED_MEMO.move_to_end(key)
+        trace.count(f"memo.hit.{kind}")
         return hit[1]
-    value = compute()
+    trace.count(f"memo.miss.{kind}")
+    with trace.span("engine.derive"):
+        value = compute()
     _DERIVED_MEMO[key] = (weakref.ref(anchor), value)
     while len(_DERIVED_MEMO) > _DERIVED_MEMO_MAX:
         _DERIVED_MEMO.popitem(last=False)  # LRU: never drop the hot entries
@@ -183,7 +187,10 @@ class BFSOp:
 
     def metrics(self, plan: ExecutionPlan, result: Any, seconds: float) -> dict[str, Any]:
         stats = self._stats(plan)
-        reached = int((result >= 0).sum()) if result is not None else 0
+        reached = 0
+        if result is not None:
+            trace.count("sync.bfs_reached")
+            reached = int((result >= 0).sum())
         return {
             "rounds": stats.rounds,
             "edges_traversed": stats.edges_traversed,

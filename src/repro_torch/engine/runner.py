@@ -28,6 +28,7 @@ from typing import Any
 
 import torch
 
+from .. import trace
 from ..core.strategies import MigratoryStrategy
 from ..machine.perfmodel import maybe_predict_plan_seconds
 from . import decode_op as _decode_op  # noqa: F401  (imports register the built-in OpSpecs)
@@ -76,8 +77,9 @@ def build_plan(
     substrate: "Substrate | str" = "local",
 ) -> ExecutionPlan:
     """Stage 1: plan. Resolve op/strategy/substrate and bind the inputs."""
-    op, sub = resolve_op(op), get_substrate(substrate)
-    return op.plan(inputs, resolve_strategy(op, inputs, strategy, sub), sub)
+    with trace.span("engine.plan"):
+        op, sub = resolve_op(op), get_substrate(substrate)
+        return op.plan(inputs, resolve_strategy(op, inputs, strategy, sub), sub)
 
 
 def compile_plan(
@@ -86,7 +88,8 @@ def compile_plan(
     """Stage 2: resolve the plan's executor through the cache. ``slot``
     tags the entry with the executor-pool slot doing the resolving
     (placement pinning)."""
-    return (default_cache() if cache is None else cache).get(plan, slot=slot)
+    with trace.span("engine.lookup"):
+        return (default_cache() if cache is None else cache).get(plan, slot=slot)
 
 
 def _block(result: Any) -> Any:
@@ -94,6 +97,7 @@ def _block(result: Any) -> Any:
     counterpart of ``jax.block_until_ready``). Only that stream: other
     streams' work is not this call's."""
     first = result[0] if isinstance(result, tuple) else result
+    trace.count("sync.block")
     if isinstance(first, torch.Tensor) and first.is_cuda:
         torch.cuda.current_stream(first.device).synchronize()
     return result
@@ -127,19 +131,20 @@ def execute(
     compile_seconds = 0.0
     result = None
     n_warm = warmup
-    if not compiled.cache_hit:
-        first: list[float] = []
-        result = _timed_call(compiled, first)
-        compile_seconds = first[0]
-        cache.note_compiled(compiled, compile_seconds)
-        if warmup > 0:
-            n_warm = warmup - 1  # the first call was the first warmup
-        else:
-            timed.append(compile_seconds)  # cold-timing mode
-    for _ in range(n_warm):
-        result = _timed_call(compiled, [])
-    for _ in range(max(1, iters) - len(timed)):
-        result = _timed_call(compiled, timed)
+    with trace.span("engine.execute"):
+        if not compiled.cache_hit:
+            first: list[float] = []
+            result = _timed_call(compiled, first)
+            compile_seconds = first[0]
+            cache.note_compiled(compiled, compile_seconds)
+            if warmup > 0:
+                n_warm = warmup - 1  # the first call was the first warmup
+            else:
+                timed.append(compile_seconds)  # cold-timing mode
+        for _ in range(n_warm):
+            result = _timed_call(compiled, [])
+        for _ in range(max(1, iters) - len(timed)):
+            result = _timed_call(compiled, timed)
     timed.sort()
     return result, timed[len(timed) // 2], compile_seconds
 
@@ -181,19 +186,20 @@ def run_plan(
     """Compile + execute an already-built plan and assemble its RunReport."""
     compiled = compile_plan(plan, cache, slot=slot)
     result, seconds, compile_seconds = execute(compiled, iters=iters, warmup=warmup, cache=cache)
-    report = RunReport.from_parts(
-        op=op.name,
-        strategy=plan.strategy,
-        substrate=plan.substrate,
-        seconds=seconds,
-        traffic=op.traffic(plan),
-        bytes_moved=op.bytes_moved(plan),
-        metrics=op.metrics(plan, result, seconds),
-        cache_hit=compiled.cache_hit,
-        compile_seconds=compile_seconds,
-        # None (and absent from to_dict) unless a calibrated machine file exists
-        predicted_seconds=maybe_predict_plan_seconds(op, plan),
-    )
+    with trace.span("engine.account"):
+        report = RunReport.from_parts(
+            op=op.name,
+            strategy=plan.strategy,
+            substrate=plan.substrate,
+            seconds=seconds,
+            traffic=op.traffic(plan),
+            bytes_moved=op.bytes_moved(plan),
+            metrics=op.metrics(plan, result, seconds),
+            cache_hit=compiled.cache_hit,
+            compile_seconds=compile_seconds,
+            # None (and absent from to_dict) unless a calibrated machine file exists
+            predicted_seconds=maybe_predict_plan_seconds(op, plan),
+        )
     return result, report
 
 
@@ -213,10 +219,11 @@ def run(
     """
     if not isinstance(request, Request):
         raise TypeError(f"run takes a Request, got {type(request).__name__}")
-    op = resolve_op(request.op)
-    substrate = request.substrate if request.substrate is not None else "local"
-    plan = build_plan(op, request.inputs, request.strategy, substrate)
-    return run_plan(plan, op, iters=iters, warmup=warmup, cache=cache)
+    with trace.request("engine.run"):
+        op = resolve_op(request.op)
+        substrate = request.substrate if request.substrate is not None else "local"
+        plan = build_plan(op, request.inputs, request.strategy, substrate)
+        return run_plan(plan, op, iters=iters, warmup=warmup, cache=cache)
 
 
 run_request = run

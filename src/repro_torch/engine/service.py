@@ -76,6 +76,7 @@ from typing import Any, Iterator
 
 import torch
 
+from .. import trace
 from ..core.strategies import MigratoryStrategy
 from ..device import resolve_device
 from .api import RunReport
@@ -1156,8 +1157,10 @@ class EngineService:
             return
         if self._shed_if_expired(item, t0):
             return
+        rid = ("ticket", item.request.ticket)
         try:
-            with self._on_channel(item.request.substrate, channel) as stream:
+            with trace.request("service.execute", rid), \
+                    self._on_channel(item.request.substrate, channel) as stream:
                 if stream is not None and item.ready is not None:
                     stream.wait_event(item.ready)
                 result, report = single_call(item.plan, item.op, cache=self.cache, slot=slot)
@@ -1167,29 +1170,30 @@ class EngineService:
             self._finish_error(item, exc)
             return
         t1 = time.perf_counter()
-        response = ServiceResponse(item.request.ticket, result, report)
-        item.future._resolve(response)
-        with self._lock:
-            self._live.pop(item.request.ticket, None)
-            if item.dedup_key is not None:
-                self._dedup_store[item.dedup_key] = response
-                self._dedup_store.move_to_end(item.dedup_key)
-                while len(self._dedup_store) > self.dedup_max_entries:
-                    self._dedup_store.popitem(last=False)
-                if self._dedup_pending.get(item.dedup_key) is item:
-                    del self._dedup_pending[item.dedup_key]
-            self._resolve_waiters_locked(item, response)
-            if item.request.t_admit:
-                self._queue_waits.append(max(0.0, t0 - item.request.t_admit))
-                total = max(0.0, t1 - item.request.t_admit)
-                self._total_latencies.append(total)
-                if self.slo_target_seconds is not None:
-                    self._stats.slo_checked += 1
-                    if total > self.slo_target_seconds:
-                        self._stats.slo_violations += 1
-            self._service_times.append(t1 - t0)
-            self._account_locked(report)
-            self._finish_locked()
+        with trace.request("service.handoff", rid):
+            response = ServiceResponse(item.request.ticket, result, report)
+            item.future._resolve(response)
+            with self._lock:
+                self._live.pop(item.request.ticket, None)
+                if item.dedup_key is not None:
+                    self._dedup_store[item.dedup_key] = response
+                    self._dedup_store.move_to_end(item.dedup_key)
+                    while len(self._dedup_store) > self.dedup_max_entries:
+                        self._dedup_store.popitem(last=False)
+                    if self._dedup_pending.get(item.dedup_key) is item:
+                        del self._dedup_pending[item.dedup_key]
+                self._resolve_waiters_locked(item, response)
+                if item.request.t_admit:
+                    self._queue_waits.append(max(0.0, t0 - item.request.t_admit))
+                    total = max(0.0, t1 - item.request.t_admit)
+                    self._total_latencies.append(total)
+                    if self.slo_target_seconds is not None:
+                        self._stats.slo_checked += 1
+                        if total > self.slo_target_seconds:
+                            self._stats.slo_violations += 1
+                self._service_times.append(t1 - t0)
+                self._account_locked(report)
+                self._finish_locked()
 
     def _resolve_waiters_locked(self, item: _WorkItem, response: ServiceResponse) -> None:
         """Answer every coalesced duplicate with the primary's response

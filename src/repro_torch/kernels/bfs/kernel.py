@@ -18,8 +18,9 @@ import functools
 import torch
 
 from ...core.bfs import UNVISITED, _expand_dense, global_rows
+from ...trace import count_launch
 from ..build import check, load, stream_of
-from ..runtime import count_launch, on_card
+from ..runtime import on_card
 
 
 def bfs_expand_plain(adj: torch.Tensor, frontier: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,9 @@ import functools
 
 import torch
 
+from ...trace import count_launch
 from ..build import check, load, stream_of
-from ..runtime import count_launch, on_card
+from ..runtime import on_card
 
 #: the largest head dim the kernels take (the CUDA-core kernel's widest tile)
 MAX_HEAD_DIM = 256

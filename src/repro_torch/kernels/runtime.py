@@ -7,11 +7,7 @@ raises, and nothing falls back.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
-
-_COUNT_LOCK = threading.Lock()
 
 
 def on_card(*tensors: torch.Tensor) -> bool:
@@ -25,11 +21,3 @@ def on_card(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"kernel inputs must all be on CUDA or all on the CPU, got {sorted(kinds)}")
-
-
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the kernel's launch count. Under a
-    lock: the service's pool workers launch the same kernel from several
-    threads, and ``+= 1`` on an attribute is a read-modify-write."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1

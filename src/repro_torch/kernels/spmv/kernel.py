@@ -13,8 +13,9 @@ import functools
 
 import torch
 
+from ...trace import count_launch
 from ..build import check, load, stream_of
-from ..runtime import count_launch, on_card
+from ..runtime import on_card
 
 
 def spmv_ell_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,9 @@ import torch
 
 from ...core.util import ceil_div
 from ...device import to_numpy
+from ...trace import count_launch
 from ..build import check, load, stream_of
-from ..runtime import count_launch, on_card
+from ..runtime import on_card
 from .kernel import check_planes, spmv_ell_plain
 
 

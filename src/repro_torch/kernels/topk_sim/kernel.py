@@ -17,8 +17,9 @@ import functools
 import torch
 
 from ...core.gsana import NEG, sim_from_feats, task_chunk
+from ...trace import count_launch
 from ..build import check, load, stream_of
-from ..runtime import count_launch, on_card
+from ..runtime import on_card
 
 #: the most scored feature columns (5 + t1 + t2 + t3) the kernel takes: its
 #: wide instance keeps 40 rows of them in a block's 227 KB of shared memory

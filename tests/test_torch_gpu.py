@@ -440,6 +440,62 @@ def test_autotune_and_auto_on_the_card(cuda, no_machine_file):
             assert torch.equal(got, want)
 
 
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+               "cudaMemcpy")  # the runtime calls that block the host on the card
+
+
+def test_charged_syncs_equal_the_profilers_synchronizes_a_request(cuda, no_machine_file,
+                                                                 tmp_path):
+    """The ``sync.*`` counts (``engine.syncs_per_request``) are placed by hand
+    at each site where the host waits for the card. Each traced request's
+    charged count must equal the blocking runtime calls the profiler records
+    under its ``engine.run``, so a site the count misses fails here."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import trace
+    from repro_torch.engine import PlanCache
+
+    a = T.partition_ell(TS.laplacian_2d(64, device=cuda), 8, device=cuda)
+    x = torch.randn(a.shape[1], generator=torch.Generator().manual_seed(2)).to(cuda)
+    edges = TS.erdos_renyi_edges(12, 8, seed=1)
+    g = TS.partition_graph(TS.edges_to_csr(edges, 1 << 12, device=cuda), 8, device=cuda)
+    kept = BFSInputs(g, int(edges[0, 0]))
+    cache = PlanCache()
+
+    def requests():  # fresh inputs miss the ops' memo, kept ones hit it (the cells' two cases)
+        for sub in (LocalSubstrate(cuda), CudaSubstrate(cuda)):
+            yield Request("spmv", SpMVInputs(a, x), None, sub)
+            yield Request("bfs", BFSInputs(g, int(edges[0, 0])), None, sub)
+            yield Request("bfs", kept, None, sub)
+
+    for _ in range(2):  # warm: kernels built, plans cached
+        for req in requests():
+            run(req, iters=1, warmup=0, cache=cache)
+    torch.cuda.synchronize()
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for req in requests():
+            run(req, iters=1, warmup=0, cache=cache)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    roots = sorted((e for e in events if e["name"] == "engine.run"), key=lambda e: float(e["ts"]))
+    blocking = [float(e["ts"]) for e in events if e["name"] in SYNC_EVENTS]
+    seen = [sum(float(r["ts"]) <= t <= float(r["ts"]) + float(r["dur"]) for t in blocking)
+            for r in roots]
+    snap = trace.snapshot()
+    rids = [s["request"] for s in sorted(snap["spans"], key=lambda s: s["t0_ns"])
+            if s["name"] == "engine.run"]
+    charged = [sum(n for k, n in snap["requests"].get(r, {}).items() if k.startswith("sync."))
+               for r in rids]
+    trace.reset()
+    assert len(roots) == len(rids) == 6
+    assert charged == seen, (charged, seen)
+    assert min(charged) >= 2
+
+
 def test_calibrate_the_card(cuda, tmp_path):
     from repro_torch.machine import calibrate, load_machine
 

@@ -19,7 +19,7 @@ from repro_torch.engine import (
     CudaSubstrate, EngineService, LocalSubstrate, PlanCache, Request, placement_table, run,
 )
 from repro_torch.engine.substrate import CUDA_STREAM_SLOTS
-from repro_torch.kernels.runtime import count_launch
+from repro_torch.trace import count_launch
 from torch_serving_inputs import CPU, assert_equal_results, bfs_pair, signatures, spmv_pair
 
 SUBSTRATES = {"local": lambda: LocalSubstrate(CPU), "cuda": lambda: CudaSubstrate(CPU)}
