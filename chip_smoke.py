@@ -183,7 +183,8 @@ result, without them or outside a checkout of the repository. In order:
    kernel, TFLOP/s where operations do); bfs_expand in every round of the
    main path's BFS, on the graph's (P, V_p, K) planes as ``bfs_cuda`` hands
    them over, with its occupancy at the main path's grain and the sums of
-   the round times and bounds; flash attention on layer 0's q, k, v
+   the round times and bounds, and bfs_search, the whole search in one
+   cooperative launch, against the search's bound; flash attention on layer 0's q, k, v
    captured from the prefill, on moonshot-v1-16b-a3b's (head dim 128, 16
    kv heads for 16 q heads) and on each instance the families of 7b
    captured (whisper's encoder, decoder and cross attention at prefill and
@@ -605,7 +606,7 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
     from repro_torch.core import Comm, Layout, MigratoryStrategy, Scheme, gather_result
     from repro_torch.core import validate_parents
     from repro_torch.engine import CudaSubstrate, LocalSubstrate, Request, run
-    from repro_torch.kernels.bfs.kernel import bfs_expand
+    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_search
     from repro_torch.kernels.spmv.kernel import spmv_ell
     from repro_torch.kernels.topk_sim.kernel import topk_sim
     from repro_torch.sparse import spmv_csr_ref
@@ -641,7 +642,11 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
             results.append(parents)
         return results
 
-    parents, launches["bfs_expand"] = counted(bfs_expand, bfs_path)
+    # the card path is one bfs_search launch a search and no round kernel
+    (parents, launches["bfs_search"]), launches["bfs_expand"] = counted(
+        bfs_expand, lambda: counted(bfs_search, bfs_path))
+    smoke.check(launches["bfs_expand"] == 0,
+                f"bfs: the card path launched bfs_expand {launches['bfs_expand']} times")
     smoke.check(torch.equal(parents[0], parents[1]), "bfs: the two comm strategies disagree")
     smoke.check(validate_parents(inputs["bfs"].g, 0, parents[0]), "bfs: invalid parent tree")
 
@@ -670,8 +675,8 @@ def main_path(smoke: Smoke, inputs: dict) -> dict:
     torch.testing.assert_close(score, s_local, rtol=0, atol=1e-6)
     print(f"  gsana recall@4: {report.metrics['recall_at_k']}")
     print(f"  main-path launches: {launches}")
-    for name, count in launches.items():
-        smoke.check(count > 0, f"kernel {name} was never launched on the main path")
+    for name in ("spmv_ell", "bfs_search", "topk_sim"):
+        smoke.check(launches[name] > 0, f"kernel {name} was never launched on the main path")
     return launches
 
 
@@ -710,13 +715,13 @@ def serving_path(smoke: Smoke, inputs: dict) -> None:
         SpMVInputs, choose_strategy, run, strategy_dict,
     )
     from repro_torch.engine.service import _content_hash
-    from repro_torch.kernels.bfs.kernel import bfs_expand
+    from repro_torch.kernels.bfs.kernel import bfs_search
     from repro_torch.kernels.spmv.kernel import spmv_ell
     from repro_torch.kernels.topk_sim.kernel import topk_sim
 
     dev = inputs["spmv"].x.device
     sub = CudaSubstrate(dev)
-    kernels = (spmv_ell, bfs_expand, topk_sim)
+    kernels = (spmv_ell, bfs_search, topk_sim)
     sigs = serve_signatures(inputs)
     order = [i % len(sigs) for i in range(SERVE_REQUESTS)]
 
@@ -1309,7 +1314,7 @@ def autotune_path(smoke: Smoke, inputs: dict) -> None:
         CUDA_BLOCK_CANDIDATES, CudaSubstrate, Request, autotune, rank_strategies, run,
         strategy_dict,
     )
-    from repro_torch.kernels.bfs.kernel import bfs_expand
+    from repro_torch.kernels.bfs.kernel import bfs_search
     from repro_torch.kernels.spmv.kernel import spmv_ell
     from repro_torch.kernels.topk_sim.kernel import topk_sim
     from repro_torch.machine import PerformanceModel, calibrate, reset_default_machine_cache
@@ -1318,7 +1323,7 @@ def autotune_path(smoke: Smoke, inputs: dict) -> None:
 
     dev = inputs["spmv"].x.device
     sub = CudaSubstrate(dev)
-    kernels = {"spmv": spmv_ell, "bfs": bfs_expand, "gsana": topk_sim}
+    kernels = {"spmv": spmv_ell, "bfs": bfs_search, "gsana": topk_sim}
     probes = {"spmv": 3, "bfs": 3, "gsana": 1}  # gsana: its rank 1 is PAIR, the kernel's scheme
     want_y = spmv_csr_ref(inputs["csr"], inputs["spmv"].x)
 
@@ -1422,10 +1427,11 @@ def autotune_path(smoke: Smoke, inputs: dict) -> None:
 def grain_sweep(smoke: Smoke, inputs: dict, sub, grains) -> None:
     """The main path's strategy at every grain of the cuda candidate set:
     the request's seconds and the kernel's own time at that grain (SpMV one
-    launch, BFS the sum over the rounds of the main path's BFS)."""
+    launch, BFS the whole search in one launch and the sum over the rounds
+    of the main path's BFS, each round a launch)."""
     from repro_torch.core import MigratoryStrategy, validate_parents
     from repro_torch.engine import Request, run
-    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy
+    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy, bfs_search
     from repro_torch.kernels.spmv.kernel import spmv_ell
 
     a = inputs["spmv"].a
@@ -1445,11 +1451,13 @@ def grain_sweep(smoke: Smoke, inputs: dict, sub, grains) -> None:
         parents, report = run(Request("bfs", inputs["bfs"], st, sub))
         smoke.check(validate_parents(g, 0, parents), f"sweep bfs grain {grain}: invalid tree")
         rounds = [time_ms(lambda f=f: bfs_expand(g.adj, f, block_rows=block), 20) for f in frontiers]
+        search_ms = time_ms(lambda: bfs_search(g.adj, 0, block_rows=block), 20)
         shape = bfs_expand_occupancy(block)
         print(f"  sweep bfs grain {grain} (block {block}, {-(-n_pad // block)} CTAs of "
               f"{shape['threads_per_block']} threads, {shape['blocks_per_sm']} an SM): seconds "
-              f"{report.seconds * 1e3:.4f} ms, bfs_expand {sum(rounds):.4f} ms over "
-              f"{len(rounds)} rounds (largest {max(rounds):.4f} ms)", flush=True)
+              f"{report.seconds * 1e3:.4f} ms, bfs_search {search_ms:.4f} ms, bfs_expand "
+              f"{sum(rounds):.4f} ms over {len(rounds)} rounds (largest {max(rounds):.4f} ms)",
+              flush=True)
 
 
 def flash_calls_during(fn, keep: bool = False) -> tuple:
@@ -2386,7 +2394,9 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
     from repro_torch.core import MigratoryStrategy, UNVISITED, bucketize, pick_grid
     from repro_torch.core.bfs import global_rows
     from repro_torch.core.gsana import DEFAULT_VOCAB, pair_tasks
-    from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_occupancy, bfs_expand_plain
+    from repro_torch.kernels.bfs.kernel import (
+        bfs_expand, bfs_expand_occupancy, bfs_expand_plain, bfs_search, bfs_search_plain,
+    )
     from repro_torch.kernels.spmv.kernel import spmv_ell, spmv_ell_plain
     from repro_torch.kernels.topk_sim.kernel import topk_sim, topk_sim_plain
     from repro_torch.kernels.topk_sim.ops import pair_planes
@@ -2456,6 +2466,16 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
           *bfs_expand_work(n_pad, kk, rounds[largest][0]), time_ms(library, 10),
           rounds=len(rounds), rounds_ms=sum(r[1] for r in rounds),
           rounds_bound_ms=sum(r[2] for r in rounds))
+    parents = bfs_search(planes, 0, block_rows=block)
+    smoke.check(torch.equal(parents, bfs_search_plain(planes, 0)),
+                "bfs_search disagrees with its plain version")
+    reached = parents != UNVISITED
+    entries = int((rows[reached] >= 0).sum())
+    entry("bfs_search", "src/repro_torch/csrc/bfs_expand.cu",
+          "src/repro/kernels/bfs/kernel.py:31 and its round loop", 0.0,
+          time_ms(lambda: bfs_search(planes, 0, block_rows=block), 20),
+          time_ms(lambda: bfs_search_plain(planes, 0), 3, warmup=1),
+          *bfs_search_work(n_pad, entries), None, levels=len(rounds))
 
     # -- topk_sim: the PAIR planes of the main path ----------------------------
     gi = inputs["gsana"]
@@ -2496,6 +2516,13 @@ def kernels_vs_plain(smoke: Smoke, inputs: dict, launches: dict) -> None:
           f"{time_ms(lambda: topk_sim(*planes, **kw), 5)} ms, plain version "
           f"{time_ms(lambda: topk_sim_plain(*planes, **kw), 1, warmup=0)} ms, "
           f"bound {bound_ms} ms ({bound_by})", flush=True)
+
+
+def bfs_search_work(n: int, entries: int) -> tuple[int, int]:
+    """(bytes, operations) of a whole search: each adjacency entry of a
+    reached vertex read once and the parents written once, as the
+    benchmark's bound counts them."""
+    return entries * 4 + n * 4, 0
 
 
 def bfs_expand_work(n: int, k: int, n_frontier: int) -> tuple[int, int]:

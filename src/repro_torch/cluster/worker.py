@@ -71,7 +71,7 @@ from ..engine.wire import (
     encode_value,
     to_device,
 )
-from ..kernels.bfs.kernel import bfs_expand
+from ..kernels.bfs.kernel import bfs_expand, bfs_search
 from ..kernels.flash_attention.kernel import flash_attn
 from ..kernels.spmv.kernel import spmv_ell
 from ..kernels.spmv.stripe import spmv_ell_stripes
@@ -193,7 +193,7 @@ class _InputsCache:
 def kernel_launches() -> "dict[str, int]":
     """Every CUDA kernel wrapper's launch count in this process."""
     return {k.__name__: k.launches
-            for k in (spmv_ell, spmv_ell_stripes, bfs_expand, topk_sim, flash_attn)}
+            for k in (spmv_ell, spmv_ell_stripes, bfs_expand, bfs_search, topk_sim, flash_attn)}
 
 
 def serve(

@@ -55,9 +55,10 @@ class CostEstimate:
     issues (BFS pays one per round), feeding the alpha term.
 
     ``detail["substrate_memory"]`` maps a substrate kind to that backend's
-    *own* per-launch working set + access class where its kernel moves a
-    different memory shape than the generic path. The perf model prefers
-    the targeted declaration over the generic one.
+    *own* per-launch working set + access class (and, where it differs,
+    its launch count: BFS on ``cuda`` is one launch a search) where its
+    kernel moves a different memory shape than the generic path. The perf
+    model prefers the targeted declaration over the generic one.
     """
 
     strategy: MigratoryStrategy
@@ -149,15 +150,17 @@ def bfs_cost_model(inputs) -> CostModel:
     p, vp, k = inputs.g.adj.shape
     sweep_bytes = 12 * p * vp * k
     n_pad = p * vp
-    # csrc/bfs_expand.cu, once a round, on the graph's (P, V_p, K) planes in
-    # place: it reads the frontier mask (1 B a vertex) and writes the
-    # proposals, filled first (8 B a vertex); only frontier rows are
-    # walked, and over a whole BFS every reached row is a frontier row
-    # once, so the rounds read each traversed edge's slot once (4 B) and
-    # issue one atomicMin for it into the one parent array (4 B). The
-    # atomics are scattered read-modify-writes: the scatter class. There is
-    # no per-CTA partial, so no term depends on the grain.
-    cuda_bytes = 9 * n_pad + ceil_div(8 * stats.edges_traversed, max(1, stats.rounds))
+    # csrc/bfs_expand.cu's bfs_search: the whole search in one launch, on
+    # the graph's (P, V_p, K) planes in place. Each level reads the frontier
+    # mask (1 B a vertex) and the proposals, and writes them back reset for
+    # the next level (8 B a vertex); only frontier rows are walked, and over
+    # a whole BFS every reached row is a frontier row once, so the search
+    # reads each traversed edge's slot once (4 B) and issues one atomicMin
+    # for it into the one parent array (4 B). The atomics are scattered
+    # read-modify-writes: the scatter class. The grid is the kernel's
+    # occupancy times the SMs, known only on the card; no term depends on
+    # it or on the grain.
+    cuda_bytes = 9 * n_pad * stats.rounds + 8 * stats.edges_traversed
 
     def estimate(st: MigratoryStrategy) -> CostEstimate:
         if st.comm == Comm.MIGRATE:
@@ -179,11 +182,7 @@ def bfs_cost_model(inputs) -> CostModel:
                 "memory_bytes_per_launch": sweep_bytes,
                 "memory_access": "scatter",
                 "substrate_memory": {
-                    "cuda": {
-                        "bytes_per_launch": cuda_bytes,
-                        "access": "scatter",
-                        "ctas": ceil_div(n_pad, max(1, min(st.dynamic_grain(n_pad), n_pad))),
-                    },
+                    "cuda": {"launches": 1, "bytes_per_launch": cuda_bytes, "access": "scatter"},
                 },
             },
             traffic=split,

@@ -37,11 +37,12 @@ GRAIN_CANDIDATES = (None, 16, 64, 256)
 # the cuda kernels' tuning axis: grain = rows one CTA owns. Taken from the
 # kernels' launch shapes: csrc/spmv_ell.cu gives a CTA min(256, roundup32(
 # grain)) threads, so 256 is the least grain that fills a CTA; a bfs_expand
-# CTA fills its 16 warps at 512 rows; the main path's dynamic grains (None)
-# are 1024 for SpMV and 2048 for BFS; 4096 halves the CTAs once more. The
-# grain sweep of chip_smoke.py on an H100 (PERF.md) keeps all six: the two
-# kernels' fastest grains lie at opposite ends of the set (spmv_ell at 4096,
-# bfs_expand at 256-512, where 8 CTAs of 256 rows fit an SM).
+# or bfs_search CTA fills its 16 warps at 512 rows; the main path's dynamic
+# grains (None) are 1024 for SpMV and 2048 for BFS; 4096 halves the CTAs once
+# more. The grain sweep of chip_smoke.py on an H100 (PERF.md) keeps all six:
+# spmv_ell is fastest at 4096, the rounds of bfs_expand at 256-512 (8 CTAs
+# of 256 rows fit an SM), and the whole search, bfs_search, spreads by 5 %
+# over the set, fastest at 1024-2048.
 CUDA_BLOCK_CANDIDATES = (None, 256, 512, 1024, 2048, 4096)
 
 

@@ -1,22 +1,29 @@
-"""Full BFS through the round kernel: the loop the ``("bfs", "cuda")``
-engine kernel dispatches to.
+"""Full BFS on the card: what the ``("bfs", "cuda")`` engine kernel
+dispatches to.
 
-The loop is :func:`repro_torch.core.bfs.bfs_rounds`, the local oracle's own
-loop, with the expansion round swapped for :func:`bfs_expand`; the
-min-merge is integer arithmetic, so the parent tree is bit-identical to
-``bfs_local`` for every strategy and block size. Both S2 comm strategies
-share the kernel; the strategy's contribution here is the grain axis,
-``block_rows``. The kernel reads the graph's (P, V_p, K) planes in place:
-nothing is copied into global vertex order.
+On CUDA tensors the whole search is one cooperative launch of
+:func:`bfs_search` (``csrc/bfs_expand.cu``): the level loop, the commit, the
+empty-frontier test and the root's stores run on the card, so a search
+costs the host one launch and no wait; the card path no longer runs
+:func:`repro_torch.core.bfs.bfs_rounds`. On CPU tensors the search is the
+kernel's plain version, ``bfs_rounds`` (the local oracle's own loop) over
+:func:`~.kernel.bfs_expand_plain`. The two paths share no loop logic: a
+host test a level is what the card path must not do.
+The min-merge is integer arithmetic, so the parent tree is bit-identical to
+``bfs_local`` for every strategy, block size and ``max_rounds``. Both S2
+comm strategies share the kernel; the strategy's contribution here is the
+grain axis, ``block_rows``, and the search's grid is the kernel's
+occupancy at that grain. The kernel reads the graph's (P, V_p, K) planes in
+place: nothing is copied into global vertex order.
 """
 from __future__ import annotations
 
 import torch
 
-from ...core.bfs import _finalize_parents, bfs_rounds
+from ...core.bfs import _finalize_parents
 from ...core.strategies import MigratoryStrategy
 from ...sparse.graph import PartitionedGraph
-from .kernel import bfs_expand
+from .kernel import bfs_search
 
 
 def bfs_cuda(
@@ -35,5 +42,4 @@ def bfs_cuda(
     if block_rows is None:
         block_rows = (strategy or MigratoryStrategy()).dynamic_grain(n)
     block = max(1, min(int(block_rows), n))
-    expand = lambda a, f: bfs_expand(a, f, block_rows=block)  # noqa: E731
-    return _finalize_parents(g, bfs_rounds(g.adj, root, max_rounds, expand, n))
+    return _finalize_parents(g, bfs_search(g.adj, root, block_rows=block, max_rounds=max_rounds))

@@ -26,7 +26,8 @@ rate (S2 migrate lowers to a pull), remote-write bytes at the
 strategy's own comm-axis rate. ``launches`` comes from the cost model's
 ``detail["collective_launches"]`` — BFS pays one dispatch per frontier
 round, which is exactly what makes migrate-vs-write latency-bound on
-high-diameter graphs.
+high-diameter graphs — unless the substrate's own declaration gives its
+launches (BFS on ``cuda``: one a search).
 
 Predictions are *attached*, never substituted: ranking by them is the
 autotuner's decision and only happens against a ``calibrated`` profile, so
@@ -89,6 +90,7 @@ class PerformanceModel:
         if targeted is not None:
             per_launch = targeted.get("bytes_per_launch", per_launch)
             access = targeted.get("access", access)
+            launches = float(targeted.get("launches", launches))
         mem_bytes = (
             max(1.0, launches) * float(per_launch)
             if per_launch is not None

@@ -32,8 +32,9 @@ Counters on the engine path:
 
 - ``sync.<site>``: a place where the host waits for a card value
   (``sync.block``: the runner's stream synchronize; ``sync.bfs_frontier``:
-  the round loop's frontier test; ``sync.bfs_root``: the two stores of the
-  root into the round loop's state; ``sync.spmv_nnz``: SpMV's non-zero
+  the host round loop's frontier test; ``sync.bfs_root``: the two stores of
+  the root into the host round loop's state (a search on the card, one
+  ``bfs.search`` span, charges neither); ``sync.spmv_nnz``: SpMV's non-zero
   count; ``sync.bfs_reached``: BFS's reached count; ``sync.bfs_replay``: the
   traffic replay's host copy of the graph, on a memo miss). A site counts
   each pass, also where the value lies on the host.

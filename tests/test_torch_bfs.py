@@ -22,7 +22,7 @@ from repro.kernels.bfs.kernel import bfs_expand_pallas
 from repro.kernels.bfs.ref import bfs_expand_reference
 from repro_torch.core.bfs import _adj_global as port_adj_global
 from repro_torch.engine import BFSInputs, CudaSubstrate, LocalSubstrate, Request, run
-from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
+from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain, bfs_search
 from repro_torch.kernels.bfs.ops import bfs_cuda
 
 CPU = "cpu"
@@ -87,6 +87,22 @@ def test_bfs_max_rounds_cut(max_rounds):
         inputs = BFSInputs(port_in.g, port_in.root, max_rounds=max_rounds)
         parents, _ = run(Request("bfs", inputs, None, sub), iters=1, warmup=0)
         np.testing.assert_array_equal(parents.numpy(), np.asarray(p_ref))
+
+
+@pytest.mark.parametrize("layout", ["planes", "rows"])
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_bfs_search_plain_cut_at_every_round_matches_reference(name, layout):
+    """``bfs_search`` on CPU tensors (the kernel's plain version: the host
+    round loop) on the (P, V_p, K) planes and on P = 1 rows, cut after each
+    level from 1 to one past the depth: the JAX ``local`` substrate's cut."""
+    ref_in, port_in = problem(name)
+    adj = port_in.g.adj if layout == "planes" else port_adj_global(port_in.g).contiguous()
+    n_vertices = port_in.g.n_vertices
+    depth = R.bfs_traffic(ref_in.g, ref_in.root, R.MigratoryStrategy()).rounds
+    for max_rounds in range(1, depth + 2):
+        want = np.asarray(R.bfs_local(ref_in.g, ref_in.root, max_rounds=max_rounds))
+        got = bfs_search(adj, port_in.root, block_rows=33, max_rounds=max_rounds)[:n_vertices]
+        np.testing.assert_array_equal(torch.where(got == T.UNVISITED, -1, got).numpy(), want)
 
 
 @pytest.mark.parametrize("block_rows", [1, 3, 64, 4096])

@@ -15,9 +15,12 @@ import repro_torch.sparse as TS
 from repro_torch.core.bfs import _adj_global, bfs_local, global_rows
 from repro_torch.core.gsana import pair_tasks
 from repro_torch.engine import (
-    BFSInputs, CudaSubstrate, GSANAInputs, LocalSubstrate, Request, SpMVInputs, run,
+    CUDA_BLOCK_CANDIDATES, BFSInputs, CudaSubstrate, GSANAInputs, LocalSubstrate, Request,
+    SpMVInputs, run,
 )
-from repro_torch.kernels.bfs.kernel import bfs_expand, bfs_expand_plain
+from repro_torch.kernels.bfs.kernel import (
+    _search_ctas, bfs_expand, bfs_expand_plain, bfs_search, bfs_search_plain,
+)
 from repro_torch.kernels.bfs.ops import bfs_cuda
 from repro_torch.kernels.flash_attention.kernel import (
     MAX_HEAD_DIM, flash_attention_plain, flash_attn, kernel_block_k,
@@ -145,6 +148,110 @@ def test_bfs_expand_kernel_on_planes_bit_identical(cuda, p, vp, k, kind, block_r
     for adj in (planes, rows, shifted):
         assert torch.equal(bfs_expand(adj, frontier, block_rows=block_rows), want)
     assert bfs_expand.launches == before + 3
+
+
+def search_graph(kind, device):
+    """A partitioned graph and a root: an R-MAT graph from vertex 0, the same
+    graph from a vertex of degree 0, or an Erdos-Renyi graph beside a copy of
+    itself with its ids shifted past it (two components, and isolated
+    vertices) from a vertex of the first copy."""
+    if kind == "components":
+        edges = TS.erdos_renyi_edges(10, 3, seed=5)
+        edges = np.concatenate([edges, edges + (1 << 10)])
+        csr = TS.edges_to_csr(edges, 1 << 11, device=device)
+    else:
+        csr = TS.edges_to_csr(TS.rmat_edges(12, 8, seed=2), 1 << 12, device=device)
+    g = TS.partition_graph(csr, 8, device=device)
+    root = int(edges[0, 0]) if kind == "components" else 0
+    if kind == "isolated_root":
+        degree = (global_rows(g.adj) >= 0).sum(1)[: g.n_vertices]
+        root = int(torch.nonzero(degree == 0)[0, 0])
+    return g, root
+
+
+def assert_cut_searches_match(search, want, max_depth):
+    """``search(max_rounds)`` equals ``want(max_rounds)`` at every cut from 1
+    level to one past the depth (the first cut whose tree stops growing), in
+    one launch each."""
+    full = want(None)
+    for max_rounds in range(1, max_depth + 1):
+        before = bfs_search.launches
+        got = search(max_rounds)
+        assert bfs_search.launches == before + 1
+        expected = want(max_rounds)
+        assert torch.equal(got, expected), max_rounds
+        if torch.equal(expected, full):
+            return
+    raise AssertionError(f"the search is deeper than {max_depth} levels")
+
+
+@pytest.mark.parametrize("grain", CUDA_BLOCK_CANDIDATES)
+@pytest.mark.parametrize("comm", list(T.Comm))
+@pytest.mark.parametrize("kind", ["rmat", "isolated_root", "components"])
+def test_bfs_search_kernel_equals_bfs_local_at_every_cut(cuda, kind, comm, grain):
+    """The search kernel through ``bfs_cuda``, at every grain of the cuda
+    candidates and both comms: bit-identical to ``bfs_local``'s tree at every
+    ``max_rounds``, one launch a search, and no round kernel launched."""
+    g, root = search_graph(kind, cuda)
+    st = T.MigratoryStrategy(comm=comm, grain=grain)
+    rounds = bfs_expand.launches
+    assert_cut_searches_match(lambda r: bfs_cuda(g, root, st, r),
+                              lambda r: bfs_local(g, root, st, r), 64)
+    assert bfs_expand.launches == rounds
+    assert T.validate_parents(g, root, bfs_cuda(g, root, st))
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 33, 256, 2048])
+@pytest.mark.parametrize("layout", ["planes", "rows", "shifted"])
+@pytest.mark.parametrize("kind", ["rmat", "isolated_root", "components"])
+def test_bfs_search_kernel_on_planes_and_rows_equals_plain(cuda, kind, layout, block_rows):
+    """The search kernel on the (P, V_p, K) planes, on a row-major P = 1
+    adjacency, and on those rows 4 bytes past 8-byte alignment: the plain
+    version's parents (UNVISITED where unreached) at every cut."""
+    g, root = search_graph(kind, cuda)
+    adj = g.adj if layout == "planes" else global_rows(g.adj).contiguous()
+    if layout == "shifted":
+        rows = adj
+        adj = torch.empty(rows.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(rows.shape)
+        adj.copy_(rows)
+        assert adj.data_ptr() % 8 == 4
+    assert_cut_searches_match(
+        lambda r: bfs_search(adj, root, block_rows=block_rows, max_rounds=r),
+        lambda r: bfs_search_plain(adj, root, r), 64)
+
+
+def test_bfs_search_raises_instead_of_falling_back(cuda):
+    g, _ = search_graph("rmat", cuda)
+    n = g.P * g.v_per_nodelet
+    for root in (-1, n):
+        with pytest.raises(ValueError, match="outside"):
+            bfs_search(g.adj, root)
+    with pytest.raises(TypeError, match="int32"):
+        bfs_search(g.adj.long(), 0)
+
+
+def test_bfs_search_from_several_streams_equals_one(cuda):
+    """Searches from four streams at once, each grid as many CTAs as one
+    cooperative launch may hold at its grain, with round kernels between
+    them on the same streams: nothing orders the streams, and every search
+    finishes and equals the search on the default stream."""
+    csr = TS.edges_to_csr(TS.rmat_edges(19, 8, seed=2), 1 << 19, device=cuda)
+    g = TS.partition_graph(csr, 8, device=cuda)
+    n = g.P * g.v_per_nodelet
+    assert -(-n // 256) >= _search_ctas(g.adj.device.index, 256)  # every grid fills the card
+    want = bfs_search(g.adj, 0, block_rows=256)
+    frontier = torch.ones(n, dtype=torch.bool, device=cuda)
+    want_round = bfs_expand(g.adj, frontier, block_rows=256)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in range(4)]
+    got, rounds = [], []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 4]):
+            got.append(bfs_search(g.adj, 0, block_rows=256))
+            rounds.append(bfs_expand(g.adj, frontier, block_rows=256))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, want) for x in got)
+    assert all(torch.equal(x, want_round) for x in rounds)
 
 
 @pytest.mark.parametrize("n", [1024, 8192])
@@ -351,7 +458,7 @@ def test_service_pool_on_the_card_equals_run(cuda):
     sigs = _card_signatures(cuda)
     sub = CudaSubstrate(cuda)
     want = [run(Request(op, inp, st, sub), iters=1, warmup=0)[0] for op, inp, st in sigs]
-    counts = {k: k.launches for k in (spmv_ell, bfs_expand, topk_sim)}
+    counts = {k: k.launches for k in (spmv_ell, bfs_search, topk_sim)}
     svc = EngineService(cache=PlanCache(), substrate=sub, device=cuda, workers=2,
                         qos={"bfs": 2.0}, batch_window=0.01).start()
     try:
@@ -424,7 +531,7 @@ def test_autotune_and_auto_on_the_card(cuda, no_machine_file):
     g = TS.partition_graph(TS.edges_to_csr(TS.rmat_edges(12, 8, seed=1), 1 << 12, device=cuda),
                            8, device=cuda)
     cases = {"spmv": (SpMVInputs(T.partition_ell(a, 8, device=cuda), x), spmv_ell),
-             "bfs": (BFSInputs(g, 0), bfs_expand)}
+             "bfs": (BFSInputs(g, 0), bfs_search)}
     card, local = CudaSubstrate(cuda), LocalSubstrate(cuda)
     for op, (inputs, kernel) in cases.items():
         cache = PlanCache()
@@ -494,6 +601,9 @@ def test_charged_syncs_equal_the_profilers_synchronizes_a_request(cuda, no_machi
     assert len(roots) == len(rids) == 6
     assert charged == seen, (charged, seen)
     assert min(charged) >= 2
+    # the card path: SpMV the non-zero count and the block; a BFS search the
+    # block and the reached count, and on a memo miss the traffic replay
+    assert charged[3:] == [2, 3, 2], charged
 
 
 def test_calibrate_the_card(cuda, tmp_path):

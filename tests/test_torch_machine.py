@@ -21,6 +21,7 @@ from repro_torch.engine import (
     build_plan, rank_strategies, run,
 )
 from repro_torch.machine import (
+    COMM_CLASS,
     DEFAULT_PROFILE,
     AlphaBeta,
     MachineProfile,
@@ -259,12 +260,17 @@ def test_cuda_prediction_charges_the_kernels_declared_bytes():
     for op, inputs in (("spmv", spmv_inputs("skewed")[1]), ("bfs", bfs_inputs("rmat")[1])):
         for est in rank_strategies(op, inputs, substrate=CudaSubstrate(CPU), machine=profile):
             mem = est.detail["substrate_memory"]["cuda"]
-            launches = max(1.0, float(est.detail["collective_launches"]))
+            launches = max(1.0, float(mem.get("launches", est.detail["collective_launches"])))
+            assert op != "bfs" or launches == 1  # the whole search in one launch
             rate = profile.substrate("cuda").access_bw(mem["access"])
-            assert model.predict_parts(est, "cuda")["memory"] == pytest.approx(
+            parts = model.predict_parts(est, "cuda")
+            assert parts["memory"] == pytest.approx(
                 launches * mem["bytes_per_launch"] / rate, rel=1e-12)
+            alpha = profile.substrate("cuda").collective(COMM_CLASS[est.strategy.comm]).alpha
+            assert parts["collective_latency"] == pytest.approx(launches * alpha, rel=1e-12)
             assert model.predict_parts(est, "local")["memory"] == pytest.approx(
-                launches * est.detail["memory_bytes_per_launch"]
+                max(1.0, float(est.detail["collective_launches"]))
+                * est.detail["memory_bytes_per_launch"]
                 / profile.substrate("local").access_bw(est.detail["memory_access"]), rel=1e-12)
 
 
