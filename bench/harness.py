@@ -12,7 +12,13 @@ its own, so a later cell adds files and edits none:
   loop of clients, or open-loop arrivals at a fixed rate) over the engine
   entry (``engine.run``) or the serving plane (``EngineService``);
 - ``bench/ops/<op>.py`` and ``bench/reference/<op>.py``: see ``bench.ops``;
-- ``bench/metrics/<metric>.py``: ``read(run) -> float | None``.
+  an op whose requests may be bound by operations rather than bytes gives its
+  ``Cell`` the optional ``roofline_ops(tag)`` (see :func:`roofline_percent`);
+- ``bench/metrics/<metric>.py``: ``read(run) -> float | None``;
+- for the CPU checks in ``bench/tests/``: ``bench/tests/tiny/<config>.json``,
+  the keys a configuration's tiny copy changes, and
+  ``bench/tests/faults/<op>.py``, whose ``broken(fault)`` plants each of the
+  faults the check must catch under the op's timed path.
 """
 from __future__ import annotations
 
@@ -83,11 +89,12 @@ def metric_reader(name: str) -> Callable[["Run"], "float | None"]:
     return mod.read
 
 
-def peak_bytes_per_s(device_name: str) -> "float | None":
-    """The published HBM bandwidth of the card, from ``bench/peaks.json``."""
-    peaks = json.loads((BENCH / "peaks.json").read_text())
-    entry = peaks.get(device_name)
-    return None if entry is None else float(entry["hbm_bytes_per_s"])
+def published_peak(device_name: "str | None", key: str) -> "float | None":
+    """A published peak of the card from ``bench/peaks.json``:
+    ``hbm_bytes_per_s`` or ``fp32_flops_per_s``; None where it has none
+    (and off the card, ``device_name`` None)."""
+    entry = json.loads((BENCH / "peaks.json").read_text()).get(device_name, {})
+    return float(entry[key]) if key in entry else None
 
 
 @dataclasses.dataclass
@@ -102,9 +109,11 @@ class Run:
     setup_s: float
     bytes_of: "dict[int, int]"
     roofline_bytes_of: "dict[int, int]"
+    roofline_ops_of: "dict[int, int]"  # empty where the op's Cell counts no operations
     trace: Any = None  # bench.trace.Trace of the traced run's traced part
     trace_end: "float | None" = None  # perf_counter when the traced part closed
     peak_bytes_per_s: "float | None" = None
+    peak_flops_per_s: "float | None" = None  # float32, outside the tensor cores
     generator_late_ms: "float | None" = None  # open loop: p99 of submit - due
 
 
@@ -337,12 +346,15 @@ def run_cell(config: dict, mix: dict, seed: int, seconds: float, trace: bool,
         if s.ok:
             by_tag[s.tag].append(s.latency_s * 1e3)
     medians = {tag: stats.percentile(v, 50.0) if v else None for tag, v in by_tag.items()}
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else None
     run = Run(op=config["op"], mix=mix, cell=cell, samples=samples, t_start=t_start, setup_s=setup_s,
               bytes_of={tag: cell.useful_bytes(tag) for tag in range(cell.tags)},
               roofline_bytes_of={tag: cell.roofline_bytes(tag) for tag in range(cell.tags)},
+              roofline_ops_of={tag: cell.roofline_ops(tag) for tag in range(cell.tags)}
+              if hasattr(cell, "roofline_ops") else {},
               trace=tr, trace_end=tracer.t_end, generator_late_ms=late,
-              peak_bytes_per_s=peak_bytes_per_s(torch.cuda.get_device_name(device))
-              if device.type == "cuda" else None)
+              peak_bytes_per_s=published_peak(card, "hbm_bytes_per_s"),
+              peak_flops_per_s=published_peak(card, "fp32_flops_per_s"))
     lines += cell.lines(medians)
     failed = sum(not s.ok for s in samples)
     numbers = dict(cell.check(results))
@@ -418,12 +430,20 @@ def forbidden_loaded() -> "list[str]":
 
 
 def roofline_percent(run: Run, op: str) -> "float | None":
-    """The op's bound time (the roofline bytes of the requests done within
-    the traced part, at the card's peak bandwidth) as a share of the device
-    time of every operation that part ran: the same work whatever kernels
-    implement the op."""
+    """The op's bound time as a share of the device time of every operation
+    the traced part ran: the same work whatever kernels implement the op.
+
+    Each request done within the traced part is bound by the larger of its
+    roofline bytes at the card's peak bandwidth and its roofline operations
+    at the card's float32 peak, and the bound time is their sum. The peak
+    counts 2 for each float32 lane instruction (an FMA as two FLOPs), so an
+    op's ``roofline_ops`` counts 2 for every such instruction, an add, min,
+    multiply or compare as well as an FMA. An op that counts no operations,
+    or a card with no float32 peak, is bound by its bytes alone."""
     if run.op != op or run.trace is None or run.peak_bytes_per_s is None:
         return None
     done = [s for s in run.samples if s.ok and s.t1 <= run.trace_end]
-    bound_s = sum(run.roofline_bytes_of[s.tag] for s in done) / run.peak_bytes_per_s
+    flops = run.peak_flops_per_s
+    bound_s = sum(max(run.roofline_bytes_of[s.tag] / run.peak_bytes_per_s,
+                      run.roofline_ops_of.get(s.tag, 0) / flops if flops else 0.0) for s in done)
     return 100.0 * bound_s / run.trace.device_op_s

@@ -7,7 +7,12 @@ A ``Cell`` has ``tags`` (how many distinct inputs its requests cycle
 through), ``substrate`` (set by the harness), ``request(client, i) ->
 (Request, tag)``, ``useful_bytes(tag)``, ``roofline_bytes(tag)``,
 ``check([(tag, result)]) -> {name: number}``, ``control(tag) -> result``,
-``lines(median_ms_by_tag) -> [str]`` and ``baseline_ms()``.
+``lines(median_ms_by_tag) -> [str]`` and ``baseline_ms()``; optionally
+``roofline_ops(tag)``, the least float32 operations a request must do,
+counted by a function of the op's module as its roofline bytes are, and
+counted as ``bench/peaks.json``'s peak counts them: 2 for every float32 lane
+instruction, an add, min, multiply or compare as well as an FMA. A ``Cell``
+without it is bound by bytes alone.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """The harness refuses to run without a card, and neither it nor the
-references load JAX or the JAX package (top-level names compared whole)."""
+references load JAX or the JAX package (top-level names compared whole):
+checked for every op that a configuration of ``BENCHMARK.json`` runs."""
 import json
 import os
 import subprocess
@@ -9,6 +10,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from bench.tests.tiny import spec_ops
+
+OPS = spec_ops()
 ROOT = Path(__file__).resolve().parents[2]
 ENV = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
 
@@ -20,11 +24,12 @@ def _python(code: str) -> str:
     return out.stdout
 
 
-def test_harness_and_references_load_no_jax():
+@pytest.mark.parametrize("op", OPS)
+def test_harness_and_references_load_no_jax(op):
     code = (
         "import sys; sys.path[0:0] = ['.', 'src']\n"
         "import bench.run, bench.harness, bench.trace, bench.stats, bench.sweep\n"
-        "import bench.ops.spmv, bench.ops.bfs, bench.reference.spmv, bench.reference.bfs\n"
+        f"import bench.ops.{op}, bench.reference.{op}\n"
         "from bench import harness\n"
         "spec = harness.load_spec()\n"
         "[harness.metric_reader(m['name']) for m in spec['end_to_end'] + spec['per_layer']]\n"
@@ -35,10 +40,11 @@ def test_harness_and_references_load_no_jax():
     assert "repro_torch" in top  # the port is loaded; it is not `repro`
 
 
-def test_references_load_nothing_of_the_program():
+@pytest.mark.parametrize("op", OPS)
+def test_references_load_nothing_of_the_program(op):
     code = (
         "import sys; sys.path[0:0] = ['.']\n"
-        "import bench.reference.spmv, bench.reference.bfs\n"
+        f"import bench.reference.{op}\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
     )
     top = set(json.loads(_python(code).replace("'", '"')))

@@ -1,13 +1,16 @@
 """BENCHMARK.json against the contract's shape, and every file it names found
-by name: each configuration, mix, op, reference and metric reader."""
+by name: each configuration, mix, op, reference and metric reader, and the
+CPU checks' tiny sizes of each configuration and faults of each op."""
 import json
 import re
 
 import pytest
 
 from bench import harness
+from bench.tests.tiny import FAULTS, broken, spec_ops, tiny_sizes
 
 SPEC = harness.load_spec()
+OPS = spec_ops()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 KEYS = {
@@ -74,3 +77,25 @@ def test_file_is_small_and_configs_are_each_their_own():
     assert len(json.dumps(SPEC)) < 64 * 1024
     files = [c["file"] for c in SPEC["configs"]]
     assert len(set(files)) == len(files) and all(f.startswith("bench/") for f in files)
+
+
+def test_every_configuration_has_its_tiny_file():
+    for c in SPEC["configs"]:
+        assert isinstance(tiny_sizes(c["name"]), dict)
+    with pytest.raises(FileNotFoundError, match="add bench/tests/tiny/no-such-config.json"):
+        tiny_sizes("no-such-config")
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_every_op_has_its_cell_reference_and_faults(op):
+    for part in (f"ops/{op}.py", f"reference/{op}.py", f"tests/faults/{op}.py"):
+        assert (harness.BENCH / part).is_file(), f"op {op!r} needs bench/{part}"
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_each_ops_faults_cover_every_fault(op):
+    import repro_torch.engine.substrate as substrate
+
+    for fault in FAULTS:
+        name, replacement = broken(op, fault)
+        assert callable(getattr(substrate, name)) and callable(replacement), (op, fault)
